@@ -4,19 +4,28 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--profile [--profile-dir DIR]]
 
-Phase 1 builds every CUDA kernel of the package from csrc/ (nvcc, sm_90a).
-Phase 2 holds each kernel against its plain PyTorch version on the card, at
-the shapes TPC-H Q1 gives it at SF 1 and at two wider cases, and times the
-kernel, the plain version, one PyTorch library call and the byte bound.
-Phase 3 runs TPC-H Q1 and Q6 at SF 1 through
-`Session(TpchCatalog(1.0), device="cuda").query(...)`, checks the rows
-against an independent numpy computation over the same generated columns,
-and checks that Q1 went through the kernel. It prints the card's name and
-power limit, a `{"kernels": [...]}` JSON line, and last
-`{"ok": true, "device": {...}}`. Any failed phase exits nonzero.
-With --profile it also traces one warm Q1 and Q6 with torch.profiler
-(device busy time, idle share, top ops; full tables under DIR, by default
-profile_out/).
+Phase 1 builds every CUDA kernel of the package from csrc/ (nvcc, sm_90a),
+one nvcc per source, all started together.
+Phase 3 (run before phase 2) drives the main paths at SF 1 through
+`Session(TpchCatalog(1.0), device="cuda").query(...)`: TPC-H Q1 and Q6,
+then the join queries Q3, Q5, Q17 and Q18, each cold then twice warm, with
+every kernel's launch count set to 0 just before each path and read just
+after. Rows are checked against independent numpy computations over the
+same generated columns (exact integer arithmetic), and the script checks
+that Q1 launched the group-by kernel, that join_insert launched on each
+join query and join_probe on Q3, Q17 and Q18.
+Phase 2 holds each kernel against its plain PyTorch version on the card:
+the group-by kernel at Q1's shapes, two wider cases and Q18's hash-slot
+call; join_insert and join_probe at the largest calls the join queries
+make (captured in one more run of them), at the top of the table path's
+range (4,194,304 build rows, 6,000,859 probe rows), with a skewed key and
+with a varchar key. It times the kernel, the plain version, one PyTorch
+library call where one computes the same function, and the byte bound.
+It prints the card's name and power limit, a `{"kernels": [...]}` JSON
+line, and last `{"ok": true, "device": {...}}`. Any failed phase exits
+nonzero. With --profile it also traces one warm Q1, Q6, Q3 and Q18 with
+torch.profiler (device busy time, idle share, host syncs, our kernels'
+device time, top ops; full tables under DIR, by default profile_out/).
 """
 
 import datetime
@@ -192,52 +201,6 @@ def numpy_q6(li):
     return [(Decimal(int((c["l_extendedprice"].data[m] * disc[m]).sum())).scaleb(-4),)]
 
 
-def make_session():
-    """Session over TpchCatalog(1.0) on the card, lineitem uploaded."""
-    import torch
-
-    from presto_tpu_torch.connectors.tpch import TpchCatalog
-    from presto_tpu_torch.session import Session
-
-    t0 = time.perf_counter()
-    cat = TpchCatalog(1.0, device="cuda")
-    cat.page("lineitem")
-    torch.cuda.synchronize()
-    print(f"lineitem rows={cat.exact_row_count('lineitem')} generated+uploaded in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    return Session(cat, device="cuda"), cat
-
-
-def phase3(sess, cat):
-    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
-    from presto_tpu_torch.ops import groupby_kernel as gk
-
-    li = cat.host_table("lineitem")
-    n = li.num_rows
-    expect = {1: numpy_q1(li), 6: numpy_q6(li)}
-    report = {}
-    q1_launches = 0
-    for q in (1, 6):
-        walls = []
-        for _ in range(3):
-            before = gk.launches
-            t = time.perf_counter()
-            rows = sess.query(QUERIES[q]).rows()  # rows() syncs to the host
-            walls.append(time.perf_counter() - t)
-            if q == 1:
-                q1_launches = max(q1_launches, gk.launches - before)
-            if rows != expect[q]:
-                raise AssertionError(f"Q{q} rows differ from numpy:\n{rows}\n{expect[q]}")
-        report[q] = {
-            "cold_ms": walls[0] * 1e3, "warm_ms": min(walls[1:]) * 1e3,
-            "rows_per_s_warm": n / min(walls[1:]), "result_rows": len(rows),
-        }
-        print(f"phase3 Q{q}", json.dumps(report[q]), flush=True)
-    if q1_launches < 1:
-        raise AssertionError("Q1 did not launch the groupby kernel")
-    return q1_launches, report
-
-
 def q1_kernel_call(sess, cat):
     """The groupby_totals call Q1's Aggregate makes at SF 1."""
     from presto_tpu_torch.benchmark.tpch_sql import QUERIES
@@ -253,11 +216,471 @@ def q1_kernel_call(sess, cat):
     return call
 
 
-def profile_queries(sess, warm_ms, out_dir):
-    """torch.profiler over one warm run of Q1 and of Q6: device busy time,
+
+
+# -- independent numpy computations of the join queries ---------------------
+
+
+def _code(col, value):
+    """Dictionary code of `value` in a dictionary-coded host column."""
+    return next(i for i, s in enumerate(col.dictionary) if s == value)
+
+
+def _date(days):
+    import numpy as np
+
+    return np.datetime64("1970-01-01") + np.timedelta64(int(days), "D")
+
+
+def _lookup(keys):
+    """key -> row index array over a key column (keys are small ints)."""
+    import numpy as np
+
+    idx = np.full(int(keys.max()) + 1, -1, np.int64)
+    idx[keys] = np.arange(len(keys))
+    return idx
+
+
+def numpy_q3(t):
+    """TPC-H Q3 over the generated columns, in exact integer arithmetic."""
+    from decimal import Decimal
+
+    import numpy as np
+
+    c, o, li = t["customer"].columns, t["orders"].columns, t["lineitem"].columns
+    cut = _days(1995, 3, 15)
+    cust_ok = np.zeros(int(c["c_custkey"].data.max()) + 1, bool)
+    seg = c["c_mktsegment"]
+    cust_ok[c["c_custkey"].data[seg.data == _code(seg, "BUILDING")]] = True
+    o_ok = (o["o_orderdate"].data < cut) & cust_ok[o["o_custkey"].data]
+    orow = _lookup(o["o_orderkey"].data)[li["l_orderkey"].data]
+    m = (li["l_shipdate"].data > cut) & o_ok[orow]
+    rev = li["l_extendedprice"].data[m] * (100 - li["l_discount"].data[m])
+    keys, inv = np.unique(li["l_orderkey"].data[m], return_inverse=True)
+    sums = np.zeros(len(keys), np.int64)
+    np.add.at(sums, inv, rev)
+    oi = _lookup(o["o_orderkey"].data)[keys]
+    odate = o["o_orderdate"].data[oi]
+    order = np.lexsort((odate, -sums))[:10]
+    return [(int(keys[i]), Decimal(int(sums[i])).scaleb(-4), _date(odate[i]),
+             int(o["o_shippriority"].data[oi[i]])) for i in order]
+
+
+def numpy_q5(t):
+    from decimal import Decimal
+
+    import numpy as np
+
+    c, o, li = t["customer"].columns, t["orders"].columns, t["lineitem"].columns
+    s, n, r = t["supplier"].columns, t["nation"].columns, t["region"].columns
+    asia = r["r_regionkey"].data[r["r_name"].data == _code(r["r_name"], "ASIA")][0]
+    nat_ok = np.zeros(int(n["n_nationkey"].data.max()) + 1, bool)
+    nat_ok[n["n_nationkey"].data[n["n_regionkey"].data == asia]] = True
+    cnat = np.full(int(c["c_custkey"].data.max()) + 1, -1, np.int64)
+    cnat[c["c_custkey"].data] = c["c_nationkey"].data
+    snat = np.full(int(s["s_suppkey"].data.max()) + 1, -1, np.int64)
+    snat[s["s_suppkey"].data] = s["s_nationkey"].data
+    od = o["o_orderdate"].data
+    o_ok = (od >= _days(1994, 1, 1)) & (od < _days(1995, 1, 1))
+    orow = _lookup(o["o_orderkey"].data)[li["l_orderkey"].data]
+    lcn = cnat[o["o_custkey"].data[orow]]
+    lsn = snat[li["l_suppkey"].data]
+    m = o_ok[orow] & (lcn == lsn) & nat_ok[np.maximum(lsn, 0)]
+    rev = li["l_extendedprice"].data[m] * (100 - li["l_discount"].data[m])
+    sums = np.zeros(len(nat_ok), np.int64)
+    np.add.at(sums, lsn[m], rev)
+    name_of = {int(k): n["n_name"].dictionary[int(cd)]
+               for k, cd in zip(n["n_nationkey"].data, n["n_name"].data)}
+    rows = [(name_of[k], Decimal(int(sums[k])).scaleb(-4))
+            for k in range(len(sums)) if nat_ok[k] and sums[k]]
+    return sorted(rows, key=lambda x: -x[1])
+
+
+def numpy_q17(t):
+    from decimal import Decimal
+
+    import numpy as np
+
+    p, li = t["part"].columns, t["lineitem"].columns
+    pk = li["l_partkey"].data
+    qty = li["l_quantity"].data
+    n = int(pk.max()) + 1
+    cnt = np.bincount(pk, minlength=n)
+    tot = np.zeros(n, np.int64)
+    np.add.at(tot, pk, qty)
+    avg2 = (2 * tot + cnt) // (2 * np.maximum(cnt, 1))  # avg, scale 2, HALF_UP
+    part_ok = np.zeros(n, bool)
+    sel = (p["p_brand"].data == _code(p["p_brand"], "Brand#23")) & (
+        p["p_container"].data == _code(p["p_container"], "MED BOX"))
+    part_ok[p["p_partkey"].data[sel]] = True
+    # l_quantity (scale 2) < 0.2 * avg (scale 3)
+    m = part_ok[pk] & (qty * 10 < 2 * avg2[pk])
+    total = int(li["l_extendedprice"].data[m].sum())  # scale 2
+    # / 7.0 at scale 6: x = total * 10^(6 + 1 - 2), HALF_UP over 70
+    x = total * 10 ** 5
+    return [(Decimal((2 * x + 70) // 140).scaleb(-6),)]
+
+
+def numpy_q18(t):
+    from decimal import Decimal
+
+    import numpy as np
+
+    c, o, li = t["customer"].columns, t["orders"].columns, t["lineitem"].columns
+    lk = li["l_orderkey"].data
+    tot = np.zeros(int(lk.max()) + 1, np.int64)
+    np.add.at(tot, lk, li["l_quantity"].data)
+    big = np.flatnonzero(tot > 30000)  # sum(l_quantity) > 300, scale 2
+    oi = _lookup(o["o_orderkey"].data)[big]
+    ci = _lookup(c["c_custkey"].data)[o["o_custkey"].data[oi]]
+    price = o["o_totalprice"].data[oi]
+    odate = o["o_orderdate"].data[oi]
+    order = np.lexsort((odate, -price))[:100]
+    return [(c["c_name"].dictionary[int(c["c_name"].data[ci[i]])], int(c["c_custkey"].data[ci[i]]),
+             int(big[i]), _date(odate[i]), Decimal(int(price[i])).scaleb(-2),
+             Decimal(int(tot[big[i]])).scaleb(-2)) for i in order]
+
+
+JOIN_QUERIES = {3: numpy_q3, 5: numpy_q5, 17: numpy_q17, 18: numpy_q18}
+TPCH_TABLES = ("region", "nation", "supplier", "part", "customer", "orders", "lineitem")
+
+
+def make_session(sf=1.0, device="cuda"):
+    """Session over TpchCatalog(sf) on `device`, the tables the queries read
+    generated and uploaded (set-up, not query time)."""
+    import torch
+
+    from presto_tpu_torch.connectors.tpch import TpchCatalog
+    from presto_tpu_torch.session import Session
+
+    t0 = time.perf_counter()
+    cat = TpchCatalog(sf, device=device)
+    for name in TPCH_TABLES:
+        cat.page(name)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    print(f"tables {TPCH_TABLES} generated+uploaded in {time.perf_counter() - t0:.3f} s "
+          f"(lineitem rows={cat.exact_row_count('lineitem')})", flush=True)
+    return Session(cat, device=device), cat
+
+
+def _counts():
+    from presto_tpu_torch.ops import groupby_kernel as gk
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    return {"groupby_partials": gk.launches, "join_insert": jk.insert_launches,
+            "join_probe": jk.probe_launches}
+
+
+def _zero_counts():
+    from presto_tpu_torch.ops import groupby_kernel as gk
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    gk.launches = jk.insert_launches = jk.probe_launches = 0
+
+
+def run_path(sess, expect, runs=3):
+    """Each query `runs` times (cold, then warm), rows checked against
+    `expect[q]`; returns ({q: timing report}, {q: launches of the first
+    run})."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+
+    report, per_query = {}, {}
+    for q, want in expect.items():
+        walls = []
+        for i in range(runs):
+            before = _counts()
+            t = time.perf_counter()
+            rows = sess.query(QUERIES[q]).rows()  # rows() syncs to the host
+            walls.append(time.perf_counter() - t)
+            if i == 0:
+                per_query[q] = {k: v - before[k] for k, v in _counts().items()}
+            if rows != want:
+                raise AssertionError(f"Q{q} rows differ from numpy:\n{rows[:5]}\n{want[:5]}")
+        report[q] = {"cold_ms": walls[0] * 1e3, "warm_ms": min(walls[1:]) * 1e3,
+                     "result_rows": len(rows), "launches": per_query[q]}
+        print(f"phase3 Q{q}", json.dumps(report[q]), flush=True)
+    return report, per_query
+
+
+# -- phase 2: the join kernels against their plain versions -----------------
+
+
+def capture_calls(sess, queries=(3, 5, 17, 18)):
+    """One more run of the join queries with the kernel wrappers wrapped:
+    the join_insert call with the most rows to insert and the join_probe
+    call with the most probe rows (with the query each came from), and
+    Q18's groupby_totals calls."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import groupby_kernel as gk
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    rec = {"insert": None, "probe": None, "q18_totals": []}
+    orig = jk.join_insert, jk.join_probe, gk.groupby_totals
+    cur = [None]
+
+    def insert(tag, row, desired, bits):
+        live = int((row >= 0).sum())
+        if rec["insert"] is None or live > rec["insert"][2]:
+            rec["insert"] = (cur[0], (tag, row, desired, bits), live)
+        return orig[0](tag, row, desired, bits)
+
+    def probe(slot_tag, slot_row, tag, desired, start, max_scan=jk.MAX_SCAN):
+        if rec["probe"] is None or tag.shape[0] > rec["probe"][1][2].shape[0]:
+            rec["probe"] = (cur[0], (slot_tag, slot_row, tag, desired, start))
+        return orig[1](slot_tag, slot_row, tag, desired, start, max_scan)
+
+    def totals(*call):
+        if cur[0] == 18:
+            rec["q18_totals"].append(call)
+        return orig[2](*call)
+
+    jk.join_insert, jk.join_probe, gk.groupby_totals = insert, probe, totals
+    try:
+        for q in queries:
+            cur[0] = q
+            sess.query(QUERIES[q]).rows()
+    finally:
+        jk.join_insert, jk.join_probe, gk.groupby_totals = orig
+    return rec
+
+
+def _random_bytes(accesses, array_bytes):
+    """Least bytes of `accesses` random 4 B reads or writes into one array:
+    a 32 B sector each, but never more than the whole array."""
+    return min(32 * accesses, array_bytes)
+
+
+def insert_bytes(row, bits):
+    """Least bytes of one insert: tag, row and desired read and pending
+    written once (16 B a row), both slot arrays set once by the memset
+    (8 B a slot), then for each slot array one random 32 B sector per
+    inserted row, capped at the array's bytes."""
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    size = jk.table_size(bits)
+    live = int((row >= 0).sum())
+    return 16 * row.shape[0] + 8 * size + 2 * _random_bytes(live, 4 * size)
+
+
+def probe_bytes(tag, pos, slots):
+    """Least bytes of one probe launch: tag, desired and start read and
+    pos, row and more written once (24 B a row), one random 32 B sector of
+    slot tags per row and one of slot rows per tag match, each capped at
+    its slot array's bytes (4 B a slot)."""
+    return (24 * tag.shape[0] + _random_bytes(tag.shape[0], 4 * slots)
+            + _random_bytes(int((pos >= 0).sum()), 4 * slots))
+
+
+def find_every_row(slot_tag, slot_row, pending, tag, row, desired):
+    """Probe the table with every inserted row's own tag through the probe
+    kernel, relaunching past tag matches of other rows and after scans that
+    need more, until each row finds itself or is lost; pending rows are
+    looked up in the tag-sorted overflow region. Returns (probe rounds,
+    found: bool per row, True where row < 0)."""
+    import torch
+
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    found = row < 0
+    placed = torch.nonzero((row >= 0) & (pending == 0)).flatten()
+    start = torch.zeros_like(tag)
+    rounds = 0
+    while placed.numel():
+        pos, got, more = jk.join_probe(slot_tag, slot_row, tag[placed], desired[placed],
+                                       start[placed])
+        mine = got == row[placed]
+        found[placed[mine]] = True
+        lost = (pos < 0) & (more == 0)
+        other = (pos >= 0) & ~mine
+        start[placed] = torch.where(other, pos - desired[placed] + 1,
+                                    torch.where(more.bool(), start[placed] + jk.MAX_SCAN,
+                                                start[placed]))
+        placed = placed[~mine & ~lost]
+        rounds += 1
+        if rounds > slot_tag.shape[0]:
+            raise AssertionError("probe rounds do not end")
+    left = torch.nonzero(pending).flatten()
+    of_tag, order = torch.sort(tag[left], stable=True)
+    of_row = row[left][order]
+    lo = torch.searchsorted(of_tag, tag[left])
+    hi = torch.searchsorted(of_tag, tag[left], right=True)
+    ok = torch.zeros(left.numel(), dtype=torch.bool, device=tag.device)
+    for k in range(int((hi - lo).max()) if left.numel() else 0):
+        p = torch.clamp(lo + k, max=max(of_row.numel() - 1, 0))
+        ok |= (lo + k < hi) & (of_row[p] == row[left])
+    found[left] = ok
+    return rounds, found
+
+
+def insert_case(name, tag, row, desired, bits):
+    """join_insert (kernel) against join_insert_plain. Slot placement may
+    differ between two correct inserts, so the two are compared by what a
+    join sees: both held to the table invariants, and every inserted row
+    looked up by its own tag through the probe kernel in each table.
+    max_abs_err is the largest |found(kernel) - found(plain)| over the rows
+    (found = 1 when the row's tag leads to it); times."""
+    import torch
+
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    got = jk.join_insert(tag, row, desired, bits)
+    plain = jk.join_insert_plain(tag, row, desired, bits)
+    torch.cuda.synchronize()
+    errs = {label: jk.insert_invariant_errors(tag, row, desired, bits, *out)
+            for label, out in (("kernel", got), ("plain", plain))}
+    rounds, found = find_every_row(*got, tag, row, desired)
+    _, found_plain = find_every_row(*plain, tag, row, desired)
+    not_found = int((~found).sum()) + int((~found_plain).sum())
+    max_err = int((found.to(torch.int32) - found_plain.to(torch.int32)).abs().max())
+    if errs["kernel"] or errs["plain"] or not_found or max_err:
+        raise AssertionError(f"{name}: invariants {errs}, rows not found by their tag "
+                             f"{not_found}, found(kernel) vs found(plain) max err {max_err}")
+    ms = cuda_ms(lambda: jk.join_insert(tag, row, desired, bits))
+    plain_ms = cuda_ms(lambda: jk.join_insert_plain(tag, row, desired, bits), iters=3, warmup=1)
+    nbytes = insert_bytes(row, bits)
+    res = {"case": name, "n": tag.shape[0], "bits": bits, "live": int((row >= 0).sum()),
+           "pending": int(got[2].sum()), "plain_pending": int(plain[2].sum()),
+           "find_rounds": rounds,
+           "invariant_violations": len(errs["kernel"]) + len(errs["plain"]),
+           "rows_not_found": not_found, "max_abs_err": float(max_err), "ms": ms,
+           "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+    print("phase2", json.dumps(res), flush=True)
+    return res, got
+
+
+def probe_case(name, slot_tag, slot_row, tag, desired, start):
+    """join_probe (kernel) against join_probe_plain on one table: exact."""
+    import torch
+
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    got = jk.join_probe(slot_tag, slot_row, tag, desired, start)
+    want = jk.join_probe_plain(slot_tag, slot_row, tag, desired, start)
+    torch.cuda.synchronize()
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+              for a, b in zip(got, want))
+    if err:
+        raise AssertionError(f"{name}: probe kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: jk.join_probe(slot_tag, slot_row, tag, desired, start))
+    plain_ms = cuda_ms(lambda: jk.join_probe_plain(slot_tag, slot_row, tag, desired, start),
+                       iters=5)
+    nbytes = probe_bytes(tag, got[0], slot_tag.shape[0])
+    res = {"case": name, "m": tag.shape[0], "table_slots": slot_tag.shape[0],
+           "matched": int((got[0] >= 0).sum()), "more": int(got[2].sum()),
+           "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+    print("phase2", json.dumps(res), flush=True)
+    return res
+
+
+def _tags(keys_h, bits):
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    return jk._tag_desired(keys_h, bits)
+
+
+def join_phase2(sess, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
+    """The join kernels against their plain versions: the largest calls
+    the four queries make, the top of the table path's range (a build of
+    n_max rows, TABLE_MAX_BUILD by default, probed by m_max rows), a skewed
+    key and a varchar key (n_small rows each). Returns (insert results,
+    probe results, Q18's hash-slot groupby result)."""
+    import numpy as np
+    import torch
+
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.expr.ir import col
+    from presto_tpu_torch.ops import join_kernel as jk
+    from presto_tpu_torch.ops.hashing import hash_column, hash_rows_values
+    from presto_tpu_torch.page import Block, Page
+
+    dev = torch.device(dev)
+    rec = capture_calls(sess)
+    q_ins, (tag, row, desired, bits), _live = rec["insert"]
+    q_pr, pcall = rec["probe"]
+    print(f"phase2 largest build: Q{q_ins} n={tag.shape[0]} bits={bits}; largest n1 probe: "
+          f"Q{q_pr} m={pcall[2].shape[0]} table slots={pcall[0].shape[0]}", flush=True)
+    inserts = [insert_case(f"largest_build_q{q_ins}", tag, row, desired, bits)[0]]
+    probes = [probe_case(f"largest_probe_q{q_pr}", *pcall)]
+
+    # the top of the table path: TABLE_MAX_BUILD distinct keys (bits 23),
+    # probed by 6,000,859 rows of which about half match
+    rng = np.random.default_rng(11)
+    n = n_max or jk.TABLE_MAX_BUILD
+    keys = torch.from_numpy(rng.permutation(n).astype(np.int64) * 7 + 3).to(dev)
+    bits = jk._pick_bits(n)
+    tag, desired = _tags(hash_column(keys), bits)
+    row = torch.arange(n, dtype=torch.int32, device=dev)
+    res, (st, sr, _pend) = insert_case("max_build_4M", tag, row, desired, bits)
+    inserts.append(res)
+    m = m_max
+    pick = torch.from_numpy(rng.integers(0, n, m)).to(dev)
+    miss = torch.from_numpy(rng.random(m) < 0.5).to(dev)
+    pkeys = torch.where(miss, keys[pick] + (1 << 40), keys[pick])
+    ptag, pdes = _tags(hash_column(pkeys), bits)
+    probes.append(probe_case("probe_6M_half_match", st, sr, ptag, pdes,
+                             torch.zeros_like(ptag)))
+    del st, sr
+
+    # skew: one key repeated 1,000 times among 100,000 rows, so rows
+    # overflow and probes continue past other rows' matches
+    n = n_small
+    keys = torch.from_numpy(np.where(rng.random(n) < 0.01, 7, rng.permutation(n) + 100)).to(dev)
+    bits = jk._pick_bits(n)
+    tag, desired = _tags(hash_column(keys), bits)
+    row = torch.arange(n, dtype=torch.int32, device=dev)
+    res, (st, sr, pend) = insert_case("skew_key_x1000", tag, row, desired, bits)
+    inserts.append(res)
+    if res["pending"] == 0 or res["find_rounds"] < 2:
+        raise AssertionError("the skew case neither overflowed nor continued a probe")
+    starts = torch.from_numpy(rng.integers(0, jk.R_MAX, n).astype(np.int32)).to(dev)
+    probes.append(probe_case("probe_skew", st, sr, tag, desired, starts))
+
+    # varchar keys in two dictionaries: the table join on the card equals
+    # the same join on the CPU
+    bdict = tuple(f"key{i:07d}" for i in range(n_small))
+    pdict = tuple(sorted(f"key{i:07d}" for i in range(n_small // 2, 3 * n_small // 2)))
+    bcodes = rng.permutation(len(bdict)).astype(np.int32)
+    pcodes = rng.integers(0, len(pdict), 3 * n_small).astype(np.int32)
+    pages = {}
+    for d in (dev, torch.device("cpu")):
+        build = Page.from_blocks([Block.from_numpy(bcodes, T.VARCHAR, dictionary=bdict, device=d),
+                                  Block.from_numpy(np.arange(len(bdict)), T.BIGINT, device=d)],
+                                 ["k", "v"])
+        probe = Page.from_blocks([Block.from_numpy(pcodes, T.VARCHAR, dictionary=pdict, device=d),
+                                  Block.from_numpy(np.arange(len(pcodes)), T.BIGINT, device=d)],
+                                 ["k", "w"])
+        pages[d.type] = (build, probe)
+    key = (col("k", T.VARCHAR),)
+    build, probe = pages[dev.type]
+    kv = build.block("k")
+    bits = jk._pick_bits(build.capacity)
+    tag, desired = _tags(hash_rows_values([kv]), bits)
+    row = torch.arange(build.capacity, dtype=torch.int32, device=dev)
+    res, (st, sr, pend) = insert_case("varchar_key", tag, row, desired, bits)
+    inserts.append(res)
+    ptag, pdes = _tags(hash_rows_values([probe.block("k")]), bits)
+    probes.append(probe_case("probe_varchar", st, sr, ptag, pdes, torch.zeros_like(ptag)))
+    got = jk.table_join_n1(probe, jk.build_table(build, key), key, ("v",), ("v",))
+    cb, cp = pages["cpu"]
+    want = jk.table_join_n1(cp, jk.build_table(cb, key), key, ("v",), ("v",))
+    if sorted(got.to_pylist()) != sorted(want.to_pylist()) or int(want.count) == 0:
+        raise AssertionError("varchar table join on the card differs from the CPU")
+    print(f"phase2 varchar join rows={int(got.count)} equal to the CPU", flush=True)
+
+    # the hash-slot group-by call of Q18's outer aggregate
+    (call,) = rec["q18_totals"]
+    hash_res = kernel_case("q18_hash_slot", call, lambda c: 0.0)
+    return inserts, probes, hash_res
+
+
+def profile_queries(sess, warm_ms, out_dir, queries):
+    """torch.profiler over one warm run of each query: device busy time,
     its idle share of the unprofiled warm wall time `warm_ms[q]`, and the
-    kernels that took the device time.
-    The full table goes to <out_dir>/profile_q<N>.txt."""
+    kernels that took the device time. The full table goes to
+    <out_dir>/profile_q<N>.txt."""
     import os
 
     import torch
@@ -266,7 +689,7 @@ def profile_queries(sess, warm_ms, out_dir):
     from presto_tpu_torch.benchmark.tpch_sql import QUERIES
 
     os.makedirs(out_dir, exist_ok=True)
-    for q in (1, 6):
+    for q in queries:
         sess.query(QUERIES[q]).rows()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -285,11 +708,15 @@ def profile_queries(sess, warm_ms, out_dir):
 
         busy_ms = sum(dev_us(e) for e in device) / 1e3
         top = sorted(device, key=dev_us, reverse=True)[:8]
+        ours = {k: sum(dev_us(e) for e in device if k in e.key) / 1e3
+                for k in ("groupby_partials_kernel", "join_insert_kernel", "join_probe_kernel")}
         print(f"profile Q{q}", json.dumps({
             "profiled_wall_ms": wall_ms, "warm_wall_ms": warm_ms[q],
             "device_busy_ms": busy_ms,
             "idle_share_of_warm_wall": 1.0 - busy_ms / warm_ms[q],
             "device_launches": sum(e.count for e in device),
+            "host_syncs": sum(e.count for e in device if "DtoH" in e.key),
+            "our_kernels_device_ms": ours,
             "top_device_ms": {e.key[:70]: dev_us(e) / 1e3 for e in top},
         }), flush=True)
         with open(os.path.join(out_dir, f"profile_q{q}.txt"), "w") as f:
@@ -303,7 +730,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from presto_tpu_torch import cuda_build
-    from presto_tpu_torch.ops import groupby_kernel as gk
 
     # phase 1: build
     t0 = time.perf_counter()
@@ -315,35 +741,72 @@ def main() -> int:
                 print(f"phase1 {name}: {line.strip()}")
     print(f"phase1 built {len(logs)} kernel libraries in {secs:.3f} s", flush=True)
 
-    # phase 2: the kernel against its plain version, Q1's call included
     sess, cat = make_session()
-    cases = phase2(q1_kernel_call(sess, cat))
+    tables = {name: cat.host_table(name) for name in TPCH_TABLES}
 
-    # phase 3: the main path, with the launch count at 0 just before it
-    gk.launches = 0
-    q1_launches, report = phase3(sess, cat)
-    main_path_launches = gk.launches
+    # phase 3, the main paths, each with the launch counts at 0 just
+    # before it and read just after: Q1/Q6, then the join queries
+    t0 = time.perf_counter()
+    li = tables["lineitem"]
+    expect = {1: numpy_q1(li), 6: numpy_q6(li)}
+    _zero_counts()
+    report, per_query = run_path(sess, expect)
+    path_counts = {"q1_q6": _counts()}
+    expect = {q: fn(tables) for q, fn in JOIN_QUERIES.items()}
+    _zero_counts()
+    jreport, jper = run_path(sess, expect)
+    path_counts["joins"] = _counts()
+    report.update(jreport)
+    per_query.update(jper)
+    print(f"phase3 main-path launches {json.dumps(path_counts)} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if per_query[1]["groupby_partials"] < 1:
+        raise AssertionError("Q1 did not launch the groupby kernel")
+    for q in (3, 5, 17, 18):
+        if per_query[q]["join_insert"] < 1:
+            raise AssertionError(f"Q{q} did not launch join_insert")
+    for q in (3, 17, 18):
+        if per_query[q]["join_probe"] < 1:
+            raise AssertionError(f"Q{q} did not launch join_probe")
+
+    # phase 2: each kernel against its plain version, at the main paths'
+    # shapes and at wider cases
+    t0 = time.perf_counter()
+    cases = phase2(q1_kernel_call(sess, cat))
+    inserts, probes, hash_res = join_phase2(sess)
+    cases.append(hash_res)
+    print(f"phase2 done in {time.perf_counter() - t0:.3f} s", flush=True)
 
     args = sys.argv[1:]
     if "--profile" in args:
         out_dir = args[args.index("--profile-dir") + 1] if "--profile-dir" in args else "profile_out"
-        profile_queries(sess, {q: r["warm_ms"] for q, r in report.items()}, out_dir)
+        profile_queries(sess, {q: r["warm_ms"] for q, r in report.items()}, out_dir,
+                        (1, 6, 3, 18))
 
+    launches = {k: sum(c[k] for c in path_counts.values()) for k in path_counts["joins"]}
     q1 = cases[0]
-    kernels = [{
-        "name": "groupby_partials",
-        "route": "cuda",
-        "source": "presto_tpu_torch/csrc/groupby_partials.cu",
-        "replaces": "presto_tpu/ops/pallas_groupby.py:59",
-        "launches": main_path_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": q1["ms"],
-        "plain_ms": q1["plain_ms"],
-        "bound_ms": q1["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": q1["library_ms"],
-    }]
-    print(f"Q1 launches per query: {q1_launches}")
+
+    def entry(name, source, replaces, case, cases, check):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "check": check, "ms": case["ms"], "plain_ms": case["plain_ms"],
+                "bound_ms": case["bound_ms"], "bound_by": "bytes",
+                "library_ms": case["library_ms"]}
+
+    kernels = [
+        entry("groupby_partials", "presto_tpu_torch/csrc/groupby_partials.cu",
+              "presto_tpu/ops/pallas_groupby.py:59", q1, cases,
+              "totals against the plain version"),
+        entry("join_insert", "presto_tpu_torch/csrc/join_insert.cu",
+              "presto_tpu/ops/pallas_join.py:193", inserts[0], inserts,
+              "table invariants of both tables (violations "
+              f"{sum(c['invariant_violations'] for c in inserts)}); max_abs_err is "
+              "|found(kernel) - found(plain)| of each row looked up by its own tag"),
+        entry("join_probe", "presto_tpu_torch/csrc/join_probe.cu",
+              "presto_tpu/ops/pallas_join.py:452", probes[0], probes,
+              "pos, row and more against the plain version on the same table"),
+    ]
+    print("launches per query (first run): " + json.dumps(per_query))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

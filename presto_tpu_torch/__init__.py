@@ -11,8 +11,9 @@ Layer map (as in presto_tpu):
   plan/       plan nodes, rules, optimizer, stats          (copied, repointed)
   expr/       row expressions evaluated eagerly on tensors
   page.py     columnar Page/Block device representation
-  ops/        relational operators; groupby_kernel.py wraps the CUDA kernel
-  exec/       single-device executor
+  ops/        relational operators; groupby_kernel.py and join_kernel.py
+              wrap the CUDA kernels
+  exec/       single-device executor, runtime dynamic filters
   connectors/ tpch generator (bit-identical), memory tables
   csrc/       CUDA C++ kernels (sm_90a), plain C interface
 

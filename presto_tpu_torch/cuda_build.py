@@ -27,6 +27,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # kernel library name -> source file under csrc/
 KERNEL_SOURCES = {
     "groupby_partials": "groupby_partials.cu",
+    "join_insert": "join_insert.cu",
+    "join_probe": "join_probe.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -2,35 +2,46 @@
 
 The analog of the reference's LocalExecutionPlanner + Driver (SURVEY.md
 §3.3): walks the PlanNode tree bottom-up, executing each node as a few
-eager tensor operations (and, for small-G group-bys, the CUDA kernel of
-ops/groupby_kernel.py) over capacity-padded Pages on one device.
+eager tensor operations (and the CUDA kernels of ops/groupby_kernel.py and
+ops/join_kernel.py) over capacity-padded Pages on one device.
 
 Kept from the JAX package: capacities bucketed to powers of two and pages
 shrunk after selective operators (`_shrink`, gated by the CBO estimate so
-most nodes pay no host sync), and the adaptive-capacity retry loop of the
-sorted group-by, so results and strategy choices match. PyTorch runs
-eagerly, so the JAX package's jit kernel cache is a plain call here.
+most nodes pay no host sync), the adaptive-capacity retry loops of the
+sorted group-by and the 1:N join, build sides run first so their dynamic
+filters prune the probe side's scans, and the star-join fusion, so results
+and strategy choices match. PyTorch runs eagerly, so the JAX package's jit
+kernel cache is a plain call here, and no breaker stands around a kernel:
+a kernel fault fails the query.
 
 Nodes ported: TableScan, Filter, Project, Aggregate, Distinct, Sort, TopN,
-Limit, Output, SingleRow and the Exchange/AggFinalize pass-throughs. Any
-other node raises ExecutionError("not ported yet: <node>").
+Limit, Output, SingleRow, Join, SemiJoin, ScalarApply and the
+Exchange/AggFinalize pass-throughs. Any other node raises
+ExecutionError("not ported yet: <node>").
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import types as T
-from ..expr.compiler import project_page
-from ..expr.ir import ColumnRef
+from ..expr.compiler import evaluate, project_page
+from ..expr.ir import Call, ColumnRef
 from ..ops.aggregate import global_aggregate, grouped_aggregate_sorted
-from ..ops.filter import filter_page
+from ..ops.filter import compact, filter_page
+from ..ops.join import build, join_expand, join_n1, semi_match_mask
+from ..ops.join_kernel import build_table, table_multiway_n1
 from ..ops.sort import distinct_page, limit_page, sort_page, top_n
 from ..page import Block, Page, round_capacity
 from ..plan import nodes as N
+from .dynfilter import DynamicFilterContext, derive_filter
+
+# dynamic filters are derived only when the CBO expects the join to keep
+# under this fraction of its probe rows
+DYN_MAX_SELECTIVITY = 0.7
 
 
 class ExecutionError(RuntimeError):
@@ -44,15 +55,31 @@ class Executor:
         self._retries = 0  # adaptive-capacity re-runs
         self._est_cache: Dict = {}
         self._ps_cache: Dict = {}
+        # runtime dynamic filters: per-query build-side summaries consumed
+        # by probe-side scans and filters
+        self.dyn_ctx = DynamicFilterContext()
 
     # -- public --
     def run(self, node: N.PlanNode) -> Page:
+        self.dyn_ctx.reset()  # filters are per-query state
         return self._run(node)
 
     # -- dispatch --
+    def _run_children(self, node: N.PlanNode):
+        """Execute a node's children, BUILD SIDE FIRST for dynamic-filter
+        joins, so the derived filter is published before the probe side's
+        scans run (the reference's LocalDynamicFiltersCollector order)."""
+        if isinstance(node, (N.Join, N.SemiJoin)) and node.dynamic_filters:
+            build_page = self._run(node.children[1])
+            self._publish_dynamic_filters(node, build_page)
+            return [self._run(node.children[0]), build_page]
+        return [self._run(c) for c in node.children]
+
     def _run(self, node: N.PlanNode) -> Page:
-        pages = [self._run(c) for c in node.children]
-        return self.exec_node(node, *pages)
+        inner = self._star_spec(node)
+        if inner is not None:
+            return self._run_star_join(node, inner)
+        return self.exec_node(node, *self._run_children(node))
 
     def exec_node(self, node: N.PlanNode, *pages: Page) -> Page:
         """Apply one plan node to already-materialized input pages."""
@@ -108,16 +135,102 @@ class Executor:
         return Page.from_blocks((blk,), (node.channel,), 1)
 
     def _exec_tablescan(self, node: N.TableScan) -> Page:
-        # dynamic filters only prune; joins (which publish them) are not
-        # ported yet, so scans read every row
         src = self.catalog.page(node.table).to(self.device)
         blocks = tuple(src.block(col) for _ch, col, _typ in node.columns)
         names = tuple(ch for ch, _col, _typ in node.columns)
-        return Page(blocks, names, src.count)
+        page = Page(blocks, names, src.count)
+        # scan-level pruning for the entries no Filter above fuses
+        entries = [(fid, ch) for fid, ch, _src, apply in node.dynamic_filters if apply]
+        if entries:
+            page = self._dyn_mask_page(node, page, entries, "scan")
+        return page
 
     # -- stateless row ops --
     def _exec_filter(self, node: N.Filter, page: Page) -> Page:
+        if any(self.dyn_ctx.get(fid) is not None for fid, _ch in node.dynamic_filters):
+            return self._exec_filter_dyn(node, page)
         return self._shrink(filter_page(page, node.predicate), node)
+
+    def _exec_filter_dyn(self, node: N.Filter, page: Page) -> Page:
+        """Filter with the published dynamic-filter masks fused in: ONE
+        compaction for the predicate and every runtime filter."""
+        v = evaluate(node.predicate, page)
+        keep = v.data if v.valid is None else (v.data & v.valid)
+        dmask = None
+        picked = []
+        for fid, ch in node.dynamic_filters:
+            df = self.dyn_ctx.get(fid)
+            if df is None:
+                continue
+            m = df.mask(page.block(ch))
+            dmask = m if dmask is None else (dmask & m)
+            picked.append(fid)
+        live_keep = keep & page.live_mask()
+        would_keep = live_keep.sum()
+        out, n = self._dyn_compact(page, live_keep & dmask)
+        self.dyn_ctx.note_pruned(picked[0], int(would_keep) - n, "scan")
+        return out
+
+    # -- dynamic filters (exec/dynfilter.py) --
+    def _dyn_worthwhile(self, node) -> bool:
+        """CBO benefit gate: deriving costs a build-side pass plus a probe
+        mask, so skip joins expected to keep most probe rows."""
+        out_est = self._est_rows(node)
+        probe_est = self._est_rows(node.children[0])
+        if out_est is None or probe_est is None or probe_est <= 0:
+            return True
+        return out_est < DYN_MAX_SELECTIVITY * probe_est
+
+    def _publish_dynamic_filters(self, node, build_page: Page) -> None:
+        """Derive per-key summaries from a materialized build side and
+        publish them under the planner-assigned ids."""
+        if not self._dyn_worthwhile(node):
+            return
+        keys = node.right_keys if isinstance(node, N.Join) else node.source_keys
+        live = build_page.live_mask()
+        for fid, i, _consumed in node.dynamic_filters:
+            df = derive_filter(evaluate(keys[i], build_page), live)
+            if df is not None:
+                self.dyn_ctx.publish(fid, df)
+
+    def _dyn_compact(self, page: Page, keep) -> Tuple[Page, int]:
+        """Compact for dynamic-filter masks, which are typically very
+        selective: the survivor count is read (the pruned-row accounting
+        needs it) and the output always sliced to its bucket. Returns
+        (page, survivor count)."""
+        out = compact(page, keep & page.live_mask())
+        n = int(out.count)
+        cap = round_capacity(max(n, 1))
+        if cap < out.capacity:
+            out = Page(tuple(b.take_rows(slice(0, cap)) for b in out.blocks), out.names,
+                       out.count)
+        return out, n
+
+    def _dyn_mask_page(self, node, page: Page, entries, where: str) -> Page:
+        """AND every published dynamic-filter mask over `page` and compact.
+        `entries` is [(fid, channel name or key RowExpression)]."""
+        picked = [(fid, src, self.dyn_ctx.get(fid)) for fid, src in entries]
+        picked = [p for p in picked if p[2] is not None]
+        if not picked:
+            return page
+        keep = None
+        for _fid, src, df in picked:
+            val = page.block(src) if isinstance(src, str) else evaluate(src, page)
+            m = df.mask(val)
+            keep = m if keep is None else (keep & m)
+        before = int(page.count)
+        out, n = self._dyn_compact(page, keep)
+        self.dyn_ctx.note_pruned(picked[0][0], before - n, where)
+        return out
+
+    def _apply_preprobe(self, node, probe: Page) -> Page:
+        """Pre-probe filter for produced ids with NO scan consumer: the
+        probe then sees only surviving rows."""
+        keys = node.left_keys if isinstance(node, N.Join) else node.probe_keys
+        entries = [(fid, keys[i]) for fid, i, consumed in node.dynamic_filters if not consumed]
+        if not entries:
+            return probe
+        return self._dyn_mask_page(node, probe, entries, "preprobe")
 
     def _exec_project(self, node: N.Project, page: Page) -> Page:
         return project_page(page, node.exprs, node.names)
@@ -133,11 +246,17 @@ class Executor:
         # the dense kernel strategy first, on every device: its wrapper
         # launches the CUDA kernel for CUDA tensors and runs the plain
         # version for CPU tensors
-        from ..ops.groupby_kernel import maybe_grouped_aggregate
+        from ..ops.groupby_kernel import maybe_grouped_aggregate, maybe_grouped_aggregate_hash
 
         out = maybe_grouped_aggregate(
             page, node.group_exprs, node.group_names, node.aggs, node.mask
         )
+        if out is None:
+            # the hash-slot strategy next: the kernel's second caller on
+            # CUDA, the plain totals on the CPU
+            out = maybe_grouped_aggregate_hash(
+                page, node.group_exprs, node.group_names, node.aggs, node.mask
+            )
         if out is not None:
             return self._shrink(out, node)
         # groups <= live rows; guess from the CBO estimate and retry with
@@ -249,3 +368,212 @@ class Executor:
 
     def _exec_limit(self, node: N.Limit, page: Page) -> Page:
         return self._shrink(limit_page(page, node.count), node)
+
+    # -- joins --
+    def _star_spec(self, node: N.PlanNode) -> Optional[N.Join]:
+        """The inner Join of a fusable star shape: two stacked inner n1
+        joins whose probe keys BOTH live on the shared fact side, no
+        residuals (the multiway probe of ops/join_kernel.table_multiway_n1)."""
+        if not isinstance(node, N.Join) or node.kind != "inner":
+            return None
+        if not node.unique_build or node.residual is not None:
+            return None
+        inner = node.left
+        if not isinstance(inner, N.Join) or inner.kind != "inner":
+            return None
+        if not inner.unique_build or inner.residual is not None:
+            return None
+        fact_names = {n for n, _ in inner.left.fields}
+        for k in node.left_keys:
+            if not isinstance(k, ColumnRef) or k.name not in fact_names:
+                return None
+        return inner
+
+    def _run_star_join(self, node: N.Join, inner: N.Join) -> Page:
+        """Fused multiway execution of a star pair; a side whose build is
+        not eligible for a hash table runs the two joins nested instead."""
+        dim1 = self._run(inner.right)
+        if inner.dynamic_filters:
+            self._publish_dynamic_filters(inner, dim1)
+        dim2 = self._run(node.right)
+        if node.dynamic_filters:
+            self._publish_dynamic_filters(node, dim2)
+        fact = self._run(inner.left)
+        if inner.dynamic_filters:
+            fact = self._apply_preprobe(inner, fact)
+        if node.dynamic_filters:
+            fact = self._apply_preprobe(node, fact)
+        bs1 = build_table(dim1, inner.right_keys)
+        bs2 = build_table(dim2, node.right_keys)
+        if bs1 is None or bs2 is None:
+            mid = self._exec_join(inner, fact, dim1)
+            return self._exec_join(node, mid, dim2)
+        names1 = tuple(n for n, _ in inner.right.fields)
+        names2 = tuple(n for n, _ in node.right.fields)
+        out = table_multiway_n1(fact, (
+            (bs1, tuple(inner.left_keys), names1, names1),
+            (bs2, tuple(node.left_keys), names2, names2),
+        ))
+        return self._shrink(out, node)
+
+    def _expand_retrying(self, probe: Page, bs, keys, probe_out, build_out, cap: int,
+                         kind: str) -> Page:
+        """join_expand with the adaptive-capacity retry: on overflow, rerun
+        with the capacity the overflow asks for."""
+        while True:
+            out, overflow = join_expand(probe, bs, keys, probe_out, build_out,
+                                        out_capacity=cap, kind=kind)
+            overflow = int(overflow)
+            if overflow == 0:
+                return out
+            cap = round_capacity(cap + overflow)
+            self._retries += 1
+
+    def _join_capacity(self, node, probe: Page) -> int:
+        """Initial 1:N output capacity: probe capacity vs the CBO estimate
+        (no count sync)."""
+        est = self._est_rows(node)
+        return round_capacity(max(probe.capacity, int(est) if est is not None else 1, 1))
+
+    def _exec_join(self, node: N.Join, left: Page, right: Page) -> Page:
+        if node.kind == "full" or (node.kind != "inner" and node.residual is not None):
+            return self._exec_outer_join(node, left, right)
+        if node.dynamic_filters:
+            left = self._apply_preprobe(node, left)
+        # the hash table when the build is eligible for one, else the
+        # sorted-hash layout (ops/join.py)
+        bs = build(right, node.right_keys)
+        if node.unique_build:
+            out = join_n1(left, bs, node.left_keys, right.names, right.names, kind=node.kind)
+        else:
+            out = self._expand_retrying(left, bs, node.left_keys, left.names,
+                                        [(n, n) for n in right.names],
+                                        self._join_capacity(node, left), node.kind)
+        if node.residual is not None:
+            out = filter_page(out, node.residual)
+        return self._shrink(out, node)
+
+    def _exec_outer_join(self, node: N.Join, left: Page, right: Page) -> Page:
+        """LEFT join with a residual ON filter, and FULL OUTER join:
+        inner-expand on the equi keys, apply the residual, then null-extend
+        the probe rows (and for FULL the build rows) whose row id has no
+        surviving match."""
+        from ..ops.union import concat_pages, extend_with_nulls
+
+        full = node.kind == "full"
+        taken = set(left.names) | set(right.names)
+        i = 0
+        while f"$ridL{i}" in taken or f"$ridR{i}" in taken:
+            i += 1
+        rid_l, rid_r = f"$ridL{i}", f"$ridR{i}"
+        left2 = self._with_row_id(left, rid_l)
+        right2 = self._with_row_id(right, rid_r)
+        bs = build(right2, node.right_keys)
+        expanded = self._expand_retrying(
+            left2, bs, node.left_keys, list(left.names) + [rid_l],
+            [(n, n) for n in right.names] + [(rid_r, rid_r)],
+            self._join_capacity(node, left), "inner",
+        )
+        matched = expanded if node.residual is None else filter_page(expanded, node.residual)
+        matched = self._shrink(matched, node)
+        parts = [self._drop(matched, {rid_l, rid_r})]
+        # probe rows with no surviving match -> NULL build columns
+        lkey = (ColumnRef(rid_l, T.BIGINT),)
+        left_un = join_n1(left2, build(matched, lkey), lkey, [], [], kind="anti")
+        parts.append(extend_with_nulls(
+            self._drop(left_un, {rid_l}), right.names, [b.type for b in right.blocks],
+            [b.dict_id for b in right.blocks],
+        ))
+        if full:
+            rkey = (ColumnRef(rid_r, T.BIGINT),)
+            right_un = join_n1(right2, build(matched, rkey), rkey, [], [], kind="anti")
+            parts.append(extend_with_nulls(
+                self._drop(right_un, {rid_r}), left.names, [b.type for b in left.blocks],
+                [b.dict_id for b in left.blocks], prepend=True,
+            ))
+        return self._shrink(concat_pages(parts), node)
+
+    @staticmethod
+    def _drop(page: Page, names) -> Page:
+        keep = [(b, n) for b, n in zip(page.blocks, page.names) if n not in names]
+        return Page(tuple(b for b, _ in keep), tuple(n for _, n in keep), page.count)
+
+    @staticmethod
+    def _attach_mark(probe: Page, mask, name: str) -> Page:
+        return Page(probe.blocks + (Block(mask, T.BOOLEAN, None),), probe.names + (name,),
+                    probe.count)
+
+    def _exec_semijoin(self, node: N.SemiJoin, probe: Page, source: Page) -> Page:
+        if node.dynamic_filters:
+            probe = self._apply_preprobe(node, probe)
+        kind = "anti" if node.anti else "semi"
+        if node.residual is None:
+            bs = build(source, node.source_keys)
+            if node.mark is not None:
+                mask = semi_match_mask(probe, bs, node.probe_keys)
+                return self._attach_mark(probe, mask, node.mark)
+            return self._shrink(join_n1(probe, bs, node.probe_keys, [], [], kind=kind), node)
+        # residual EXISTS: expand probe x source on the equi keys, filter the
+        # residual, then keep probe rows whose row id survived
+        rid = self._row_id_channel(probe)
+        probe2 = self._with_row_id(probe, rid)
+        needed = self._residual_channels(node.residual)
+        expanded = self._expand_retrying(
+            probe2, build(source, node.source_keys), node.probe_keys,
+            [rid] + [n for n in probe.names if n in needed],
+            [(n, n) for n in source.names if n in needed],
+            round_capacity(max(probe.capacity, 1)), "inner",
+        )
+        matched = self._shrink(filter_page(expanded, node.residual), node)
+        rkey = (ColumnRef(rid, T.BIGINT),)
+        bs2 = build(matched, rkey)
+        if node.mark is not None:
+            return self._attach_mark(probe, semi_match_mask(probe2, bs2, rkey), node.mark)
+        out = join_n1(probe2, bs2, rkey, [], [], kind=kind)
+        return self._shrink(self._drop(out, {rid}), node)
+
+    @staticmethod
+    def _row_id_channel(page: Page) -> str:
+        i = 0
+        while f"$rid{i}" in page.names:
+            i += 1
+        return f"$rid{i}"
+
+    @staticmethod
+    def _with_row_id(page: Page, name: str) -> Page:
+        rid = Block(torch.arange(page.capacity, dtype=torch.int64, device=page.device),
+                    T.BIGINT, None, None)
+        return Page(page.blocks + (rid,), page.names + (name,), page.count)
+
+    @staticmethod
+    def _residual_channels(e) -> set:
+        out: set = set()
+
+        def walk(x):
+            if isinstance(x, ColumnRef):
+                out.add(x.name)
+            elif isinstance(x, Call):
+                for a in x.args:
+                    walk(a)
+
+        walk(e)
+        return out
+
+    def _exec_scalarapply(self, node: N.ScalarApply, page: Page, sub: Page) -> Page:
+        n = int(sub.count)
+        if n > 1:
+            raise ExecutionError("scalar subquery returned more than one row")
+        cap = page.capacity
+        blocks = list(page.blocks)
+        names = list(page.names)
+        for b, (fname, _ftype) in zip(sub.blocks, node.subquery.fields):
+            if n == 0:
+                data = torch.zeros((cap,) + tuple(b.data.shape[1:]), dtype=b.data.dtype,
+                                   device=page.device)
+                valid = torch.zeros(cap, dtype=torch.bool, device=page.device)
+            else:
+                data = b.data[0].expand((cap,) + tuple(b.data.shape[1:]))
+                valid = None if b.valid is None else b.valid[0].expand(cap)
+            blocks.append(Block(data, b.type, valid, b.dict_id))
+            names.append(fname)
+        return Page(tuple(blocks), tuple(names), page.count)

@@ -1,11 +1,13 @@
 """Small-G grouped aggregation through a hand-written CUDA kernel.
 
-Counterpart of presto_tpu/ops/pallas_groupby.py's dense path
-(`maybe_grouped_aggregate`): an aggregate list of count / count_star / sum /
-avg / min / max grouped by small-domain dictionary or boolean keys (at most
-MAX_GROUPS dense group ids) runs as ONE streaming pass over the rows. The
-eligibility rules are the JAX package's, unchanged, so the same queries
-take the same strategy.
+Counterpart of presto_tpu/ops/pallas_groupby.py's two kernel callers. The
+dense path (`maybe_grouped_aggregate`): an aggregate list of count /
+count_star / sum / avg / min / max grouped by small-domain dictionary or
+boolean keys (at most MAX_GROUPS dense group ids) runs as ONE streaming pass
+over the rows. The hash-slot path (`maybe_grouped_aggregate_hash`): keys of
+any value get slot-ranked group ids, then the same pass. The eligibility
+rules are the JAX package's, unchanged, so the same queries take the same
+strategy.
 
 `groupby_totals` is the kernel's wrapper: for CUDA tensors it launches
 csrc/groupby_partials.cu (which replaces pallas_groupby.py::_kernel_factory)
@@ -20,6 +22,7 @@ import ctypes
 import dataclasses
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import types as T
@@ -34,8 +37,9 @@ THREADS = 256
 
 # launches of the CUDA kernel (one per groupby_totals call on a CUDA tensor)
 launches = 0
-# aggregations this strategy answered (maybe_grouped_aggregate returned a page)
+# aggregations the dense / hash-slot strategies answered (returned a page)
 dense_hits = 0
+hash_hits = 0
 
 
 def _rows_pad(num_groups: int, num_channels: int) -> int:
@@ -168,29 +172,8 @@ def groupby_totals(gid, live, count, channels, kinds, sources, num_groups):
 
 
 # ---------------------------------------------------------------------------
-# the dense aggregation strategy
+# channel plans: aggregates -> the kernel's channels, totals -> blocks
 # ---------------------------------------------------------------------------
-
-
-def _eligible_keys(page: Page, group_exprs):
-    """Evaluated key Vals + domain sizes when every key is small-domain."""
-    keys, domains = [], []
-    for e in group_exprs:
-        v = evaluate(e, page)
-        if isinstance(v.type, T.VarcharType) and v.dictionary is not None:
-            d = len(v.dictionary)
-        elif isinstance(v.type, T.BooleanType):
-            d = 2
-        else:
-            return None
-        keys.append(v)
-        domains.append(max(d, 1))
-    total = 1
-    for d in domains:
-        total *= d
-    if not 0 < total <= MAX_GROUPS:
-        return None
-    return keys, domains
 
 
 _SUPPORTED = {"count", "count_star", "sum", "avg", "min", "max"}
@@ -212,6 +195,15 @@ def _reference_channel_counts(aggs, ins):
         if a.func in ("min", "max"):
             ch += 1
     return ch, fch
+
+
+def _tile_fits(num_groups: int, aggs, ins) -> bool:
+    """The JAX package's kernel gates: channel counts and the output tile
+    (rows_pad(G, channels) <= 1024)."""
+    ch, fch = _reference_channel_counts(aggs, ins)
+    if ch > MAX_CHANNELS or fch > MAX_CHANNELS:
+        return False
+    return max(_rows_pad(num_groups, ch), _rows_pad(num_groups, fch), 8) <= 1024
 
 
 class _Channels:
@@ -245,6 +237,123 @@ class _Channels:
 
 
 @dataclasses.dataclass
+class ChannelPlan:
+    """The channels of an aggregate list over one page."""
+
+    ints: _Channels
+    floats: _Channels
+    rows: int  # the int channel counting each group's live rows
+    per_agg: list  # (count channel, value channel, "i"/"f"/None) per aggregate
+    dict_ids: list  # the input's dictionary id per aggregate
+
+    def calls(self, gid, live, count, num_groups):
+        """[(gid, live, count, channels, kinds, sources, G)]: the
+        groupby_totals calls of this plan (int64 set, then float64 set)."""
+        out = []
+        for chans, dtype in ((self.ints, torch.int64), (self.floats, torch.float64)):
+            if chans.kinds:
+                out.append((gid, live, count, chans.stacked(dtype), chans.kinds,
+                            chans.sources, num_groups))
+        return out
+
+
+def channel_plan(aggs: Sequence[AggSpec], ins) -> Optional[ChannelPlan]:
+    """Channels for evaluated aggregate inputs `ins` (None for count(*));
+    None when they exceed MAX_CHANNELS."""
+    ich, fchs = _Channels(), _Channels()
+    rows = ich.add("rows", COUNT)
+    per_agg = []
+    for a, v in zip(aggs, ins):
+        cnt_ch = rows
+        if v is not None and v.valid is not None:
+            cnt_ch = ich.add(("valid", a.input), ADD, v.valid.to(torch.int64))
+        if a.func in ("count", "count_star"):
+            per_agg.append((cnt_ch, None, None))
+            continue
+        if v.data.is_floating_point():
+            chans, dtype, which = fchs, torch.float64, "f"
+        else:
+            chans, dtype, which = ich, torch.int64, "i"
+        x = v.data.to(dtype)
+        if a.func in ("sum", "avg"):
+            kind, fill = ADD, 0
+        else:
+            kind = MIN if a.func == "min" else MAX
+            fill = min_identity(dtype) if kind == MIN else max_identity(dtype)
+        if v.valid is not None:
+            x = torch.where(v.valid, x, fill)
+        key = "sum" if kind == ADD else a.func
+        per_agg.append((cnt_ch, chans.add((key, a.input), kind, x), which))
+    if len(ich.kinds) > MAX_CHANNELS or len(fchs.kinds) > MAX_CHANNELS:
+        return None
+    dict_ids = [None if v is None else v.dict_id for v in ins]
+    return ChannelPlan(ich, fchs, rows, per_agg, dict_ids)
+
+
+def _run_calls(calls, totals=None):
+    """(int64 totals, float64 totals) of a plan's calls through `totals`
+    (by default the kernel wrapper, groupby_totals)."""
+    tot_i = tot_f = None
+    for call in calls:
+        tot = (totals or groupby_totals)(*call)
+        if tot.dtype == torch.float64:
+            tot_f = tot
+        else:
+            tot_i = tot
+    return tot_i, tot_f
+
+
+def _agg_blocks(aggs, cp: ChannelPlan, tot_i, tot_f) -> List[Block]:
+    """One output block per aggregate from the plan's (G, K) totals."""
+    out: List[Block] = []
+    for ai, (a, (cnt_ch, val_ch, which)) in enumerate(zip(aggs, cp.per_agg)):
+        cnt = tot_i[:, cnt_ch]
+        has = cnt > 0
+        if a.func in ("count", "count_star"):
+            out.append(Block(cnt, T.BIGINT, None))
+            continue
+        val = (tot_f if which == "f" else tot_i)[:, val_ch]
+        if a.func == "avg":
+            out.append(Block(avg_from_sum_count(val, cnt, a.output_type, a.input.type),
+                             a.output_type, has))
+        elif isinstance(a.output_type, T.DecimalType) and a.output_type.is_long:
+            from . import decimal128 as d128
+
+            out.append(Block(d128.from_int64(val), a.output_type, has))
+        else:
+            # min/max over varchar codes keep the input's dictionary
+            out.append(Block(val.to(a.output_type.storage_dtype), a.output_type, has,
+                             cp.dict_ids[ai]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dense aggregation strategy
+# ---------------------------------------------------------------------------
+
+
+def _eligible_keys(page: Page, group_exprs):
+    """Evaluated key Vals + domain sizes when every key is small-domain."""
+    keys, domains = [], []
+    for e in group_exprs:
+        v = evaluate(e, page)
+        if isinstance(v.type, T.VarcharType) and v.dictionary is not None:
+            d = len(v.dictionary)
+        elif isinstance(v.type, T.BooleanType):
+            d = 2
+        else:
+            return None
+        keys.append(v)
+        domains.append(max(d, 1))
+    total = 1
+    for d in domains:
+        total *= d
+    if not 0 < total <= MAX_GROUPS:
+        return None
+    return keys, domains
+
+
+@dataclasses.dataclass
 class DensePlan:
     """An eligible aggregation, evaluated up to the kernel's inputs."""
 
@@ -255,21 +364,11 @@ class DensePlan:
     gid: torch.Tensor
     live: torch.Tensor
     count: torch.Tensor
-    ints: _Channels
-    floats: _Channels
-    rows: int  # the int channel counting each group's live rows
-    per_agg: list  # (count channel, value channel, "i"/"f"/None) per aggregate
-    dict_ids: list  # the input's dictionary id per aggregate
+    channels: ChannelPlan
 
     def kernel_calls(self):
-        """[(gid, live, count, channels, kinds, sources, G)] — the
-        groupby_totals calls of this plan (int64 set, then float64 set)."""
-        calls = []
-        for chans, dtype in ((self.ints, torch.int64), (self.floats, torch.float64)):
-            if chans.kinds:
-                calls.append((self.gid, self.live, self.count, chans.stacked(dtype),
-                              chans.kinds, chans.sources, self.num_groups))
-        return calls
+        """The groupby_totals calls of this plan (int64 set, then float64)."""
+        return self.channels.calls(self.gid, self.live, self.count, self.num_groups)
 
 
 def dense_plan(page: Page, group_exprs, aggs: Sequence[AggSpec], pre_mask) -> Optional[DensePlan]:
@@ -312,70 +411,29 @@ def dense_plan(page: Page, group_exprs, aggs: Sequence[AggSpec], pre_mask) -> Op
     G = 1
     for d in eff_domains:
         G *= d
-    if G > MAX_GROUPS:
+    if G > MAX_GROUPS or not _tile_fits(G, aggs, ins):
         return None
-    ch, fch = _reference_channel_counts(aggs, ins)
-    if ch > MAX_CHANNELS or fch > MAX_CHANNELS:
+    cp = channel_plan(aggs, ins)
+    if cp is None:
         return None
-    if max(_rows_pad(G, ch), _rows_pad(G, fch)) > 1024:
-        return None
-
-    ich, fchs = _Channels(), _Channels()
-    rows = ich.add("rows", COUNT)
-    per_agg = []
-    for a, v in zip(aggs, ins):
-        cnt_ch = rows
-        if v is not None and v.valid is not None:
-            cnt_ch = ich.add(("valid", a.input), ADD, v.valid.to(torch.int64))
-        if a.func in ("count", "count_star"):
-            per_agg.append((cnt_ch, None, None))
-            continue
-        if a.func in ("sum", "avg"):
-            if v.data.is_floating_point():
-                x = v.data.to(torch.float64)
-                if v.valid is not None:
-                    x = torch.where(v.valid, x, 0.0)
-                per_agg.append((cnt_ch, fchs.add(("sum", a.input), ADD, x), "f"))
-            else:
-                x = v.data.to(torch.int64)
-                if v.valid is not None:
-                    x = torch.where(v.valid, x, 0)
-                per_agg.append((cnt_ch, ich.add(("sum", a.input), ADD, x), "i"))
-            continue
-        kind = MIN if a.func == "min" else MAX
-        x = v.data.to(torch.int64)
-        if v.valid is not None:
-            ident = min_identity(torch.int64) if kind == MIN else max_identity(torch.int64)
-            x = torch.where(v.valid, x, ident)
-        per_agg.append((cnt_ch, ich.add((a.func, a.input), kind, x), "i"))
-    if len(ich.kinds) > MAX_CHANNELS or len(fchs.kinds) > MAX_CHANNELS:
-        return None
-    dict_ids = [None if v is None else v.dict_id for v in ins]
     return DensePlan(keys, domains, eff_domains, G, gid, _masked_live(page, pre_mask),
-                     page.count, ich, fchs, rows, per_agg, dict_ids)
+                     page.count, cp)
 
 
 def maybe_grouped_aggregate(
     page: Page, group_exprs, group_names, aggs: Sequence[AggSpec], pre_mask
 ) -> Optional[Page]:
     """Route an eligible aggregation through the groupby kernel; None when
-    the shape is not eligible (the caller takes the sorted strategy)."""
+    the shape is not eligible (the caller takes the next strategy)."""
     global dense_hits
     dp = dense_plan(page, group_exprs, aggs, pre_mask)
     if dp is None:
         return None
     G = dp.num_groups
-    tot_i = tot_f = None
-    for call in dp.kernel_calls():
-        tot = groupby_totals(*call)
-        if tot.dtype == torch.float64:
-            tot_f = tot
-        else:
-            tot_i = tot
+    tot_i, tot_f = _run_calls(dp.kernel_calls())
 
     dev = page.device
     out_blocks: List[Block] = []
-    out_names: List[str] = []
     # group key columns from the dense gid (mixed radix decode over the
     # EFFECTIVE domains; a nullable key's last slot decodes to NULL)
     rem = torch.arange(G, dtype=torch.int32, device=dev)
@@ -384,35 +442,217 @@ def maybe_grouped_aggregate(
         key_codes.append(rem % d)
         rem = rem // d
     key_codes = list(reversed(key_codes))
-    for v, nm, code, d, eff in zip(dp.keys, group_names, key_codes, dp.domains, dp.eff_domains):
+    for v, code, d, eff in zip(dp.keys, key_codes, dp.domains, dp.eff_domains):
         valid = (code < d) if eff != d else None
         out_blocks.append(
             Block(torch.clamp(code, 0, d - 1).to(v.data.dtype), v.type, valid, v.dict_id)
         )
-        out_names.append(nm)
-
-    for ai, (a, (cnt_ch, val_ch, which)) in enumerate(zip(aggs, dp.per_agg)):
-        cnt = tot_i[:, cnt_ch]
-        has = cnt > 0
-        if a.func in ("count", "count_star"):
-            out_blocks.append(Block(cnt, T.BIGINT, None))
-        else:
-            val = (tot_f if which == "f" else tot_i)[:, val_ch]
-            if a.func == "avg":
-                data = avg_from_sum_count(val, cnt, a.output_type, a.input.type)
-                out_blocks.append(Block(data, a.output_type, has))
-            elif isinstance(a.output_type, T.DecimalType) and a.output_type.is_long:
-                from . import decimal128 as d128
-
-                out_blocks.append(Block(d128.from_int64(val), a.output_type, has))
-            else:
-                # min/max over varchar codes keep the input's dictionary
-                out_blocks.append(Block(val.to(a.output_type.storage_dtype),
-                                        a.output_type, has, dp.dict_ids[ai]))
-        out_names.append(a.name)
-
+    out_blocks += _agg_blocks(aggs, dp.channels, tot_i, tot_f)
+    out_names = list(group_names) + [a.name for a in aggs]
     out = Page.from_blocks(out_blocks, out_names, count=G, device=dev)
     from .filter import compact
 
     dense_hits += 1
-    return compact(out, tot_i[:, dp.rows] > 0)
+    return compact(out, tot_i[:, dp.channels.rows] > 0)
+
+
+# ---------------------------------------------------------------------------
+# the hash-slot aggregation strategy
+# ---------------------------------------------------------------------------
+#
+# Counterpart of pallas_groupby.py's maybe_grouped_aggregate_hash: group
+# keys of any value hash to 32-bit tags; a distinct-insert assigns every
+# live row the slot of its key's first occurrence (true key equality is
+# verified against the slot's representative row, so tag collisions
+# re-probe instead of merging groups); occupied slots rank-compact to gids
+# 0..G-1, and the totals accumulate over those gids. The mode follows the
+# device, as the JAX package's follows its backend:
+#
+# * kernel (CUDA): the groupby_totals kernel, eligible while the JAX
+#   package's kernel tile fits (rows_pad(G, channels) <= 1024, G <= 1<<10),
+#   with its restrictions on min/max inputs and sum magnitudes;
+# * host (CPU): the plain totals, G <= 1<<16.
+
+HASH_MAX_GROUPS_HOST = 1 << 16
+HASH_MAX_GROUPS_KERNEL = 1 << 10
+_HASH_START_BITS = 13
+_HASH_ROUNDS = 96  # distinct-insert advance bound before resizing
+_SUM_BOUND = 1 << 45  # the JAX kernel's exact int32-limb bound on |sum input|
+_EMPTY_TAG = 0xFFFFFFFF
+
+
+def _keys_match(keys, rows_a, rows_b) -> torch.Tensor:
+    """GROUP BY equality of key tuples at rows_a vs rows_b: NULL == NULL,
+    NaN == NaN, -0.0 == 0.0."""
+    ok = torch.ones(rows_a.shape, dtype=torch.bool, device=rows_a.device)
+    for v in keys:
+        a, b = v.data[rows_a], v.data[rows_b]
+        part = a == b
+        if a.is_floating_point():
+            part = part | (torch.isnan(a) & torch.isnan(b))
+        if part.ndim == 2:
+            part = part.all(dim=-1)
+        if v.valid is not None:
+            va, vb = v.valid[rows_a], v.valid[rows_b]
+            part = (part & va & vb) | (~va & ~vb)
+        ok = ok & part
+    return ok
+
+
+def _assign_slots(tag, keys, live, bits: int):
+    """Distinct-insert: every live row ends at the slot of its key's first
+    occurrence. Returns (slot_of_row, slot_rep, occupied), or None when
+    displacement passes _HASH_ROUNDS (the caller retries a bigger table)."""
+    dev = tag.device
+    size = (1 << bits) + _HASH_ROUNDS + 2
+    limit = size - 2  # slot size - 1 is the scatter sink for non-writers
+    slot_rep = torch.full((size,), -1, dtype=torch.int64, device=dev)
+    slot_tag = torch.full((size,), _EMPTY_TAG, dtype=torch.int64, device=dev)
+    desired = tag >> (32 - bits)
+    n = tag.shape[0]
+    slot_of = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    off = torch.zeros(n, dtype=torch.int64, device=dev)
+    pend = torch.nonzero(live).flatten()
+    for _ in range(2 * _HASH_ROUNDS):
+        if not pend.numel():
+            break
+        cand = torch.clamp(desired[pend] + off[pend], max=limit)
+        rep = slot_rep[cand]
+        occ = rep >= 0
+        # (a) occupied: join when tag AND true keys match the representative,
+        # otherwise advance (a collision or another group)
+        joined = occ & (slot_tag[cand] == tag[pend])
+        joined = joined & _keys_match(keys, pend, torch.clamp(rep, min=0))
+        off[pend] += (occ & ~joined).to(torch.int64)
+        # (b) vacant: race-insert; winners become representatives, losers
+        # retry the SAME slot next round (it is occupied now)
+        vac = ~occ
+        slot_rep[torch.where(vac, cand, size - 1)] = torch.where(vac, pend, -1)
+        slot_rep[size - 1] = -1
+        won = vac & (slot_rep[cand] == pend)
+        slot_tag[torch.where(won, cand, size - 1)] = torch.where(won, tag[pend], _EMPTY_TAG)
+        slot_tag[size - 1] = _EMPTY_TAG
+        done = joined | won
+        slot_of[pend] = torch.where(done, cand, slot_of[pend])
+        if int(off[pend].max()) >= _HASH_ROUNDS:
+            return None
+        pend = pend[~done]
+    if pend.numel():
+        return None
+    return slot_of, slot_rep, torch.nonzero(slot_rep >= 0).flatten()
+
+
+def _estimate_ndv(tag, live, sample: int = 8192) -> int:
+    """NDV estimate from the distinct tags of a strided sample: mostly
+    repeats -> about the distinct count; mostly unique -> scale up
+    (over-estimating only skips the hash path)."""
+    rows = torch.nonzero(live).flatten()
+    n = rows.numel()
+    if n == 0:
+        return 0
+    if n > sample:
+        rows = rows[:: max(n // sample, 1)][:sample]
+    u = torch.unique(tag[rows]).numel()
+    s = rows.numel()
+    if u < s // 2:
+        return max(int(u * 1.25), 1)
+    return max(int(n * (u / max(s, 1))), 1)
+
+
+def _host_accumulate(gid, live, aggs, ins, G) -> Optional[List[Block]]:
+    """Host-mode totals: the plain torch version over the gids."""
+    cp = channel_plan(aggs, ins)
+    if cp is None:
+        return None
+    count = torch.tensor(gid.shape[0], dtype=torch.int32, device=gid.device)
+    return _agg_blocks(aggs, cp, *_run_calls(cp.calls(gid, live, count, G),
+                                             groupby_totals_plain))
+
+
+def _kernel_accumulate(gid, live, aggs, ins, G) -> Optional[List[Block]]:
+    """Kernel-mode totals through groupby_totals (csrc/groupby_partials.cu
+    on CUDA tensors); None when the JAX package's tile gate rejects this
+    (G, channels) plan."""
+    if not _tile_fits(G, aggs, ins):
+        return None
+    cp = channel_plan(aggs, ins)
+    if cp is None:
+        return None
+    count = torch.tensor(gid.shape[0], dtype=torch.int32, device=gid.device)
+    return _agg_blocks(aggs, cp, *_run_calls(cp.calls(gid, live, count, G)))
+
+
+def maybe_grouped_aggregate_hash(
+    page: Page, group_exprs, group_names, aggs: Sequence[AggSpec], pre_mask, mode=None
+) -> Optional[Page]:
+    """Hash-slot grouped aggregation; None when ineligible (the caller
+    takes the sorted strategy). `mode` is "kernel" or "host"; by default
+    "kernel" on CUDA and "host" on the CPU."""
+    global hash_hits
+    if not group_exprs or any(a.func not in _SUPPORTED for a in aggs):
+        return None
+    if mode is None:
+        mode = "kernel" if page.device.type == "cuda" else "host"
+    live = _masked_live(page, pre_mask)
+    keys = [evaluate(e, page) for e in group_exprs]
+    ins = []
+    for a in aggs:
+        if a.input is None:
+            ins.append(None)
+            continue
+        v = evaluate(a.input, page)
+        if v.data.ndim != 1:
+            return None
+        floating = v.data.is_floating_point()
+        if mode != "host" and a.func in ("min", "max") and (
+            floating or v.data.element_size() > 4
+        ):
+            return None  # the JAX kernel's min/max ride int32 channels
+        if a.func in ("sum", "avg") and not floating:
+            amax = int(torch.where(live, v.data.to(torch.int64).abs(), 0).max())
+            if isinstance(a.input.type, T.DecimalType) and amax * page.capacity >= (1 << 61):
+                return None  # exact int64 totals, HALF_UP's 2|sum| + cnt included
+            if mode != "host" and amax >= _SUM_BOUND:
+                return None
+        ins.append(v)
+
+    from .hashing import _srl, hash_rows
+
+    tag = torch.clamp(_srl(hash_rows(keys), 32), max=_EMPTY_TAG - 1)
+    cap = HASH_MAX_GROUPS_HOST if mode == "host" else HASH_MAX_GROUPS_KERNEL
+    # size the table from a sampled NDV estimate, and bail when the estimate
+    # is far above the cap (the sorted strategy wins there anyway)
+    est = _estimate_ndv(tag, live)
+    if est > 2 * cap:
+        return None
+    max_bits = max(_HASH_START_BITS, int(np.ceil(np.log2(max(cap * 2, 2)))))
+    bits = min(max(int(np.ceil(np.log2(max(est * 4, 16)))), 8), max_bits)
+    assigned = None
+    while assigned is None and bits <= max_bits:
+        assigned = _assign_slots(tag, keys, live, bits)
+        # resize when the table ran hot (load > 1/2): scans stay short
+        if assigned is not None and bits < max_bits and assigned[2].numel() * 2 > (1 << bits):
+            assigned = None
+        if assigned is None:
+            bits += 2
+    if assigned is None:
+        return None
+    slot_of, slot_rep, occupied = assigned
+    G = occupied.numel()
+    if G == 0 or G > cap:
+        return None
+    rank = torch.zeros(slot_rep.shape[0], dtype=torch.int64, device=page.device)
+    rank[occupied] = torch.arange(G, device=page.device)
+    gid = torch.where(live, rank[torch.clamp(slot_of, min=0)], 0).to(torch.int32)
+    accumulate = _host_accumulate if mode == "host" else _kernel_accumulate
+    agg_blocks = accumulate(gid, live, aggs, ins, G)
+    if agg_blocks is None:
+        return None
+    reps = slot_rep[occupied]
+    out_blocks = [
+        Block(v.data[reps], v.type, None if v.valid is None else v.valid[reps], v.dict_id)
+        for v in keys
+    ] + agg_blocks
+    hash_hits += 1
+    return Page.from_blocks(out_blocks, list(group_names) + [a.name for a in aggs],
+                            count=G, device=page.device)

@@ -1,4 +1,5 @@
-"""Row hashing for group-by (torch counterpart of presto_tpu/ops/hashing.py).
+"""Row hashing for group-by and joins (torch counterpart of
+presto_tpu/ops/hashing.py).
 
 The equivalent of the reference's compiled hash strategies
 (presto-main/.../sql/gen/JoinCompiler.java hash generation and
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -85,3 +87,74 @@ def hash_rows(columns) -> torch.Tensor:
 def unsigned_order_key(h: torch.Tensor) -> torch.Tensor:
     """int64 key whose signed order equals the uint64 order of `h`."""
     return h ^ _SIGN_BIT
+
+
+# -- value hashing (joins): varchar columns hash their dictionary VALUES, so
+# the build and probe sides of a join tag equal strings identically even when
+# the two columns were born with different dictionaries --
+
+# dictionaries beyond this size skip value hashing (the one-time host pass
+# over every entry would dominate the join); callers take the sorted layout
+_VALUE_HASH_MAX_DICT_DEFAULT = 1 << 22
+
+# (dict_id, device) -> int64 value hashes; interned dictionaries never change
+_VALUE_HASH_BY_DICT: dict = {}
+
+
+def dict_value_hashes(dict_id: int, device="cpu") -> torch.Tensor:
+    """(len(dictionary),) value hashes (int64 bits) of an interned
+    dictionary: splitmix64 of crc32(utf-8 bytes) | byte length << 32, as
+    the JAX package computes them. Cached per dictionary and device."""
+    device = torch.device(device)
+    key = (dict_id, str(device))
+    vh = _VALUE_HASH_BY_DICT.get(key)
+    if vh is not None:
+        return vh
+    host = _VALUE_HASH_BY_DICT.get((dict_id, "cpu"))
+    if host is None:
+        import zlib
+
+        from ..page import dictionary_by_id
+
+        entries = dictionary_by_id(dict_id)
+        raw = np.zeros(len(entries), np.uint64)
+        for i, s in enumerate(entries):
+            b = s.encode("utf-8", "surrogatepass")
+            raw[i] = zlib.crc32(b) | ((len(b) & 0xFFFFFFFF) << 32)
+        host = mix64(torch.from_numpy(raw.view(np.int64)))
+        _VALUE_HASH_BY_DICT[(dict_id, "cpu")] = host
+    vh = host.to(device)
+    _VALUE_HASH_BY_DICT[key] = vh
+    return vh
+
+
+def value_hashable(columns) -> bool:
+    """True when every varchar column's dictionary is small enough for the
+    one-time value-hash pass (non-varchar columns are always fine)."""
+    for c in columns:
+        if getattr(c, "dict_id", None) is not None:
+            d = c.dictionary
+            if d is None or len(d) > _VALUE_HASH_MAX_DICT_DEFAULT:
+                return False
+    return True
+
+
+def hash_rows_values(columns) -> torch.Tensor:
+    """hash_rows with table-independent varchar hashing: dictionary columns
+    hash their VALUES through dict_value_hashes. Bit-identical to the JAX
+    package's np_hash_rows_values. Callers gate on value_hashable()."""
+    hs = []
+    for c in columns:
+        if getattr(c, "dict_id", None) is not None:
+            vh = dict_value_hashes(c.dict_id, c.data.device)
+            if len(vh):
+                h = vh[torch.clamp(c.data.to(torch.int64), 0, len(vh) - 1)]
+            else:
+                h = torch.full(c.data.shape, _NULL_HASH, dtype=torch.int64,
+                               device=c.data.device)
+            if c.valid is not None:
+                h = torch.where(c.valid, h, torch.full_like(h, _NULL_HASH))
+            hs.append(h)
+        else:
+            hs.append(hash_column(c.data, c.valid))
+    return combine_hashes(hs) if len(hs) > 1 else hs[0]

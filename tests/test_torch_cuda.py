@@ -1,5 +1,6 @@
-"""presto_tpu_torch on an NVIDIA card: the groupby kernel against its plain
-version, and Q1/Q6 on "cuda" against the same queries on "cpu".
+"""presto_tpu_torch on an NVIDIA card: the groupby, join-insert and
+join-probe kernels against their plain versions, and TPC-H queries on
+"cuda" against the same queries on "cpu".
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -16,6 +17,7 @@ import torch
 from presto_tpu_torch.benchmark.tpch_sql import QUERIES
 from presto_tpu_torch.connectors.tpch import TpchCatalog
 from presto_tpu_torch.ops import groupby_kernel as gk
+from presto_tpu_torch.ops import join_kernel as jk
 from presto_tpu_torch.session import Session
 
 
@@ -53,12 +55,56 @@ def test_kernel_matches_plain(cuda, dtype):
         assert bool(((got - want).abs() <= 1e-12 * mag + 1e-9).all())
 
 
+def _insert_inputs(cuda, n, bits, skew):
+    rng = np.random.default_rng(17 + skew)
+    tag_u = rng.integers(0, 0xFFFFFFFF, n, dtype=np.int64)
+    if skew:  # one tag repeated 400 times: rows overflow, probes continue
+        tag_u[rng.permutation(n)[:400]] = tag_u[0]
+    tag = torch.from_numpy(tag_u.astype(np.uint32).view(np.int32).copy()).to(cuda)
+    desired = torch.from_numpy((tag_u >> (32 - bits)).astype(np.int32)).to(cuda)
+    row = torch.from_numpy(np.where(rng.random(n) < 0.95, np.arange(n), -1).astype(np.int32))
+    return tag, row.to(cuda), desired
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [1, 6])
+@pytest.mark.parametrize("skew", [False, True])
+def test_join_kernels_match_plain(cuda, skew):
+    n = 200_000
+    bits = jk._pick_bits(n)
+    tag, row, desired = _insert_inputs(cuda, n, bits, skew)
+    before = jk.insert_launches, jk.probe_launches
+    got = jk.join_insert(tag, row, desired, bits)
+    plain = jk.join_insert_plain(tag, row, desired, bits)
+    torch.cuda.synchronize()
+    assert jk.insert_launches == before[0] + 1
+    # any race winner is a valid placement: hold both to the invariants
+    for out in (got, plain):
+        assert jk.insert_invariant_errors(tag, row, desired, bits, *out) == []
+    assert bool(got[2].any()) == skew
+    # the probe: exact against its plain version on the kernel's table
+    rng = np.random.default_rng(5)
+    m = 300_000
+    pick = torch.from_numpy(rng.integers(0, n, m)).to(cuda)
+    ptag = torch.where(pick % 2 == 0, tag[pick], tag[pick] ^ 0x5A5A5A5A).contiguous()
+    pdes = ((ptag.to(torch.int64) & 0xFFFFFFFF) >> (32 - bits)).to(torch.int32)
+    start = torch.from_numpy(rng.integers(0, 3, m).astype(np.int32)).to(cuda)
+    want = jk.join_probe_plain(got[0], got[1], ptag, pdes, start)
+    have = jk.join_probe(got[0], got[1], ptag, pdes, start)
+    torch.cuda.synchronize()
+    assert jk.probe_launches == before[1] + 1
+    for a, b in zip(have, want):
+        assert torch.equal(a, b)
+    assert bool((have[0] >= 0).any()) and (not skew or bool(have[2].any()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 6, 3, 5, 17, 18])
 def test_queries_on_card_equal_cpu(cuda, q):
-    before = gk.launches
+    before = gk.launches, jk.insert_launches
     got = Session(TpchCatalog(0.01, device="cuda"), device="cuda").query(QUERIES[q]).rows()
     if q == 1:
-        assert gk.launches > before
+        assert gk.launches > before[0]
+    if q in (3, 5, 17, 18):
+        assert jk.insert_launches > before[1]
     want = Session(TpchCatalog(0.01, device="cpu"), device="cpu").query(QUERIES[q]).rows()
     assert got == want

@@ -66,6 +66,9 @@ def test_port_modules_import_with_jax_and_reference_blocked():
         "'presto_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "for n in ('ops.join_kernel', 'ops.join', 'ops.bloomfilter', 'ops.union', "
+        "'exec.dynfilter'):\n"
+        "    assert 'presto_tpu_torch.' + n in names, n\n"
         "import chip_smoke\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'presto_tpu.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
@@ -76,4 +79,4 @@ def test_port_modules_import_with_jax_and_reference_blocked():
         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO)},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30
+    assert int(out.stdout.strip()) >= 35

@@ -10,6 +10,7 @@ from presto_tpu.connectors.tpch import TpchCatalog as RCatalog
 from presto_tpu.session import Session as RSession
 from presto_tpu_torch.connectors.tpch import TpchCatalog
 from presto_tpu_torch.exec.executor import ExecutionError
+from presto_tpu_torch.expr.functions import NotPortedError
 from presto_tpu_torch.ops import groupby_kernel as gk
 from presto_tpu_torch.session import Session
 
@@ -43,5 +44,7 @@ def test_session_device_and_unported_paths(sessions):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Session(TpchCatalog(0.01, device="cpu"))
-    with pytest.raises(ExecutionError, match="not ported yet"):
-        port.query(QUERIES[3])  # joins come with the next slice
+    with pytest.raises(NotPortedError, match="not ported yet: window functions"):
+        port.query("select n_name, rank() over (order by n_regionkey) from nation")
+    with pytest.raises(ExecutionError, match="not ported yet: Union"):
+        port.query("select n_name from nation union all select r_name from region")
