@@ -6,26 +6,41 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phase 1 builds every CUDA kernel of the package from csrc/ (nvcc, sm_90a),
 one nvcc per source, all started together.
-Phase 3 (run before phase 2) drives the main paths at SF 1 through
-`Session(TpchCatalog(1.0), device="cuda").query(...)`: TPC-H Q1 and Q6,
-then the join queries Q3, Q5, Q17 and Q18, each cold then twice warm, with
-every kernel's launch count set to 0 just before each path and read just
-after. Rows are checked against independent numpy computations over the
-same generated columns (exact integer arithmetic), and the script checks
-that Q1 launched the group-by kernel, that join_insert launched on each
-join query and join_probe on Q3, Q17 and Q18.
+Phase 3 (run before phase 2) drives the main paths at SF 1, each with every
+kernel's launch count set to 0 just before it and read just after:
+through `Session(TpchCatalog(1.0), device="cuda").query(...)`, TPC-H Q1
+and Q6, then the join queries Q3, Q5, Q17 and Q18, each cold then twice
+warm; then the benchmark path on data generated on the card
+(`DeviceTpchCatalog(1.0)`): the hand-coded pipelines q1_local,
+q1_local_kernel and q6_local three times each, SQL Q1/Q6, the
+north-star Q3/Q5/Q17/Q18 over the device catalog (Q18 selects no order
+there), Q18 with a HAVING threshold the generator reaches and the
+Q18-shaped customer rollup (both must return rows), and the benchmark
+entry point `benchmark.bench.run(1.0, "cuda")`, whose JSON line it prints.
+Rows are checked against independent numpy computations over the same
+generated columns (exact integer arithmetic; the device-generated data
+through its host twin), and the script checks that Q1 launched the
+group-by kernel, that join_insert launched on each join query and
+join_probe on Q3, Q17 and Q18 (on both catalogs; on the device catalog
+the reached Q18 in its place), and that q1_local_kernel, and only it,
+launched the fused-Q1 kernel.
 Phase 2 holds each kernel against its plain PyTorch version on the card:
 the group-by kernel at Q1's shapes, two wider cases and Q18's hash-slot
 call; join_insert and join_probe at the largest calls the join queries
 make (captured in one more run of them), at the top of the table path's
 range (4,194,304 build rows, 6,000,859 probe rows), with a skewed key and
-with a varchar key. It times the kernel, the plain version, one PyTorch
-library call where one computes the same function, and the byte bound.
+with a varchar key; the fused-Q1 kernel on the SF 1 page, on SF 10's
+60,000,000 rows generated on the card, with a count below capacity and a
+cutoff that empties groups, and on a case whose sum of charge passes 2^63
+(also held to exact Python-int totals). It times the kernel, the plain
+version, one PyTorch library call where one computes the same function,
+and the byte bound.
 It prints the card's name and power limit, a `{"kernels": [...]}` JSON
 line, and last `{"ok": true, "device": {...}}`. Any failed phase exits
-nonzero. With --profile it also traces one warm Q1, Q6, Q3 and Q18 with
-torch.profiler (device busy time, idle share, host syncs, our kernels'
-device time, top ops; full tables under DIR, by default profile_out/).
+nonzero. With --profile it also traces one warm Q1, Q6, Q3 and Q18 and
+one warm run of each hand-coded pipeline with torch.profiler (device busy
+time, idle share, host syncs, our kernels' device time, top ops; full
+tables under DIR, by default profile_out/).
 """
 
 import datetime
@@ -321,7 +336,10 @@ def numpy_q17(t):
     return [(Decimal((2 * x + 70) // 140).scaleb(-6),)]
 
 
-def numpy_q18(t):
+def numpy_q18(t, with_name=True, having=30000):
+    """TPC-H Q18; with_name=False drops c_name (the north-star text, over
+    the benchmark generator, which has no c_name). `having` is the HAVING
+    threshold on sum(l_quantity) at scale 2 (TPC-H's 300)."""
     from decimal import Decimal
 
     import numpy as np
@@ -330,15 +348,47 @@ def numpy_q18(t):
     lk = li["l_orderkey"].data
     tot = np.zeros(int(lk.max()) + 1, np.int64)
     np.add.at(tot, lk, li["l_quantity"].data)
-    big = np.flatnonzero(tot > 30000)  # sum(l_quantity) > 300, scale 2
+    big = np.flatnonzero(tot > having)  # sum(l_quantity) > having, scale 2
     oi = _lookup(o["o_orderkey"].data)[big]
     ci = _lookup(c["c_custkey"].data)[o["o_custkey"].data[oi]]
     price = o["o_totalprice"].data[oi]
     odate = o["o_orderdate"].data[oi]
     order = np.lexsort((odate, -price))[:100]
-    return [(c["c_name"].dictionary[int(c["c_name"].data[ci[i]])], int(c["c_custkey"].data[ci[i]]),
-             int(big[i]), _date(odate[i]), Decimal(int(price[i])).scaleb(-2),
-             Decimal(int(tot[big[i]])).scaleb(-2)) for i in order]
+    rows = [(int(c["c_custkey"].data[ci[i]]), int(big[i]), _date(odate[i]),
+             Decimal(int(price[i])).scaleb(-2), Decimal(int(tot[big[i]])).scaleb(-2))
+            for i in order]
+    if not with_name:
+        return rows
+    return [(c["c_name"].dictionary[int(c["c_name"].data[ci[i]])],) + r
+            for i, r in zip(order, rows)]
+
+
+def numpy_q18_shape(t):
+    """scale.Q18_SHAPE: per customer with orders, sum(o_totalprice) and
+    count(*), the top 100 by the sum. The text orders by the sum alone, so
+    the check requires the 101 largest sums to be distinct."""
+    from decimal import Decimal
+
+    import numpy as np
+
+    c, o = t["customer"].columns, t["orders"].columns
+    m = np.isin(o["o_custkey"].data, c["c_custkey"].data)  # the inner join
+    ck, price = o["o_custkey"].data[m], o["o_totalprice"].data[m]
+    tp = np.zeros(int(ck.max()) + 1, np.int64)
+    np.add.at(tp, ck, price)
+    n = np.bincount(ck, minlength=len(tp))
+    keys = np.flatnonzero(n)
+    top = keys[np.argsort(-tp[keys], kind="stable")[:101]]
+    if len(np.unique(tp[top])) != len(top):
+        raise AssertionError("Q18_SHAPE: tied sums among the top 101, order undecided")
+    return [(int(k), Decimal(int(tp[k])).scaleb(-2), int(n[k])) for k in top[:100]]
+
+
+# the north-star Q18 selects no order over the benchmark generator (4 lines
+# of at most 50 each per order, so sum(l_quantity) <= 200 < 300); this
+# threshold selects about 1.4e-3 of the orders, so the path past the inner
+# aggregate has rows to check
+Q18_REACHED_HAVING = 180
 
 
 JOIN_QUERIES = {3: numpy_q3, 5: numpy_q5, 17: numpy_q17, 18: numpy_q18}
@@ -365,42 +415,133 @@ def make_session(sf=1.0, device="cuda"):
 
 
 def _counts():
+    from presto_tpu_torch.ops import agg_kernel as ak
     from presto_tpu_torch.ops import groupby_kernel as gk
     from presto_tpu_torch.ops import join_kernel as jk
 
     return {"groupby_partials": gk.launches, "join_insert": jk.insert_launches,
-            "join_probe": jk.probe_launches}
+            "join_probe": jk.probe_launches, "q1_partials": ak.launches}
 
 
 def _zero_counts():
+    from presto_tpu_torch.ops import agg_kernel as ak
     from presto_tpu_torch.ops import groupby_kernel as gk
     from presto_tpu_torch.ops import join_kernel as jk
 
-    gk.launches = jk.insert_launches = jk.probe_launches = 0
+    gk.launches = jk.insert_launches = jk.probe_launches = ak.launches = 0
 
 
-def run_path(sess, expect, runs=3):
+def run_path(sess, expect, runs=3, texts=None):
     """Each query `runs` times (cold, then warm), rows checked against
-    `expect[q]`; returns ({q: timing report}, {q: launches of the first
-    run})."""
+    `expect[q]`; the SQL is texts[q] (TPC-H's QUERIES[q] by default).
+    Returns ({q: timing report}, {q: launches of the first run})."""
     from presto_tpu_torch.benchmark.tpch_sql import QUERIES
 
+    texts = texts or QUERIES
     report, per_query = {}, {}
     for q, want in expect.items():
+        label = f"Q{q}" if isinstance(q, int) else q
         walls = []
         for i in range(runs):
             before = _counts()
             t = time.perf_counter()
-            rows = sess.query(QUERIES[q]).rows()  # rows() syncs to the host
+            rows = sess.query(texts[q]).rows()  # rows() syncs to the host
             walls.append(time.perf_counter() - t)
             if i == 0:
                 per_query[q] = {k: v - before[k] for k, v in _counts().items()}
             if rows != want:
-                raise AssertionError(f"Q{q} rows differ from numpy:\n{rows[:5]}\n{want[:5]}")
+                raise AssertionError(f"{label} rows differ from numpy:\n{rows[:5]}\n{want[:5]}")
         report[q] = {"cold_ms": walls[0] * 1e3, "warm_ms": min(walls[1:]) * 1e3,
                      "result_rows": len(rows), "launches": per_query[q]}
-        print(f"phase3 Q{q}", json.dumps(report[q]), flush=True)
+        print(f"phase3 {label}", json.dumps(report[q]), flush=True)
     return report, per_query
+
+
+# -- phase 3: the benchmark path on device-generated data -------------------
+
+
+def run_pipelines(page, expect, runs=3):
+    """Each hand-coded pipeline `runs` times (cold, then warm) over `page`,
+    rows checked against expect[name]; returns ({name: timing report},
+    {name: launches of the first run})."""
+    from presto_tpu_torch.benchmark import handcoded
+
+    report, per = {}, {}
+    for name, want in expect.items():
+        fn = getattr(handcoded, name)
+        walls = []
+        for i in range(runs):
+            before = _counts()
+            t = time.perf_counter()
+            rows = fn(page).to_pylist()  # to_pylist() syncs to the host
+            walls.append(time.perf_counter() - t)
+            if i == 0:
+                per[name] = {k: v - before[k] for k, v in _counts().items()}
+            if rows != want:
+                raise AssertionError(f"{name}: rows differ from numpy:\n{rows}\n{want}")
+        report[name] = {"cold_ms": walls[0] * 1e3, "warm_ms": min(walls[1:]) * 1e3,
+                        "result_rows": len(rows), "launches": per[name]}
+        print(f"phase3 {name}", json.dumps(report[name]), flush=True)
+    return report, per
+
+
+def benchmark_path(sf=1.0, device="cuda", runs=3):
+    """The benchmark path: every table of DeviceTpchCatalog(sf) and
+    lineitem's Q1 page generated on `device`, the hand-coded pipelines,
+    then SQL Q1/Q6, the north-star queries, Q18 with a HAVING threshold
+    the generator reaches and scale.Q18_SHAPE through a Session over the
+    device catalog, each checked against numpy over the host twin. The
+    launch counts are set to 0 before the path and read after; returns
+    ({label: timing report}, {label: launches of the first run}, path
+    counts, the Q1 page)."""
+    import torch
+
+    from presto_tpu_torch.benchmark import handcoded, northstar, scale
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+    from presto_tpu_torch.connectors import tpch_device
+    from presto_tpu_torch.session import Session
+
+    t0 = time.perf_counter()
+    dcat = tpch_device.DeviceTpchCatalog(sf, device=device)
+    for name in TPCH_TABLES:
+        dcat.page(name)
+    page = handcoded.lineitem_q1_page(sf, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    print(f"phase3 generated on {device}: tables {TPCH_TABLES} and lineitem's Q1 page in "
+          f"{time.perf_counter() - t0:.3f} s (lineitem rows={int(page.count)})", flush=True)
+    t0 = time.perf_counter()
+    twin = {name: tpch_device.table(name, sf) for name in TPCH_TABLES}
+    q1, q6 = numpy_q1(twin["lineitem"]), numpy_q6(twin["lineitem"])
+    expect = {"sql_Q1": q1, "sql_Q6": q6}
+    texts = {"sql_Q1": QUERIES[1], "sql_Q6": QUERIES[6]}
+    for name, text in northstar.QUERIES.items():
+        q = int(name[1:])
+        label = f"northstar_{name}"
+        expect[label] = numpy_q18(twin, with_name=False) if q == 18 else JOIN_QUERIES[q](twin)
+        texts[label] = text
+    q18_reached = northstar.QUERIES["q18"].replace("> 300", f"> {Q18_REACHED_HAVING}")
+    assert q18_reached != northstar.QUERIES["q18"]
+    expect["q18_reached"] = numpy_q18(twin, with_name=False, having=Q18_REACHED_HAVING * 100)
+    texts["q18_reached"] = q18_reached
+    expect["q18_shape"], texts["q18_shape"] = numpy_q18_shape(twin), scale.Q18_SHAPE
+    for label in ("q18_reached", "q18_shape"):
+        if not expect[label]:
+            raise AssertionError(f"{label}: the numpy check selects no rows")
+    print(f"phase3 host twin and numpy checks in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    _zero_counts()
+    report, per = run_pipelines(page, {"q1_local": q1, "q1_local_kernel": q1, "q6_local": q6},
+                                runs)
+    sql_report, per_sql = run_path(Session(dcat, device=device), expect, runs, texts)
+    counts = _counts()
+    report.update(sql_report)
+    per.update(per_sql)
+    if per["q1_local_kernel"]["q1_partials"] < 1:
+        raise AssertionError("q1_local_kernel did not launch the q1_partials kernel")
+    if counts["q1_partials"] != runs * per["q1_local_kernel"]["q1_partials"]:
+        raise AssertionError(f"q1_partials launched outside q1_local_kernel: {per}")
+    return report, per, counts, page
 
 
 # -- phase 2: the join kernels against their plain versions -----------------
@@ -676,25 +817,146 @@ def join_phase2(sess, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
     return inserts, probes, hash_res
 
 
-def profile_queries(sess, warm_ms, out_dir, queries):
-    """torch.profiler over one warm run of each query: device busy time,
-    its idle share of the unprofiled warm wall time `warm_ms[q]`, and the
-    kernels that took the device time. The full table goes to
-    <out_dir>/profile_q<N>.txt."""
+# -- phase 2: the fused-Q1 kernel against its plain version -----------------
+
+Q1_CUTOFF = _days(1998, 9, 2)  # Q1's shipdate cutoff
+
+
+def _lanes_value(lanes) -> int:
+    hi, lo = (int(x) for x in lanes)
+    return hi * (1 << 32) + lo
+
+
+def q1_kernel_case(name, cols, count, cutoff, exact=None):
+    """q1_sums (kernel) against q1_sums_plain on one call's inputs: every
+    field equal. `exact` maps a group to {field: Python-int total} the
+    kernel must also equal. Times the kernel, the plain version, one
+    index_add_ of a prepared (n, 8) channel tensor by group id (the
+    library yardstick) and the byte bound: ship, returnflag and linestatus
+    read for each row below count (12 B), the four int64 decimals by the
+    32 B sectors (4 rows) that hold a selected row (selected rows are
+    scattered, so a sector is read whole), the (6, 8) totals written."""
+    import torch
+
+    from presto_tpu_torch.ops import agg_kernel as ak
+
+    dev = cols[0].device
+    count = torch.tensor(count, dtype=torch.int32, device=dev) if isinstance(count, int) else count
+    cutoff = torch.tensor(cutoff, dtype=torch.int32, device=dev)
+    call = (*cols, count, cutoff)
+    got = ak.q1_sums(*call)
+    want = ak.q1_sums_plain(*call)
+    torch.cuda.synchronize()
+    err = max(int((got[k] - want[k]).abs().max()) for k in want)
+    if err:
+        raise AssertionError(f"{name}: q1_partials disagrees with its plain version, max err {err}")
+    for g, fields in (exact or {}).items():
+        for field, total in fields.items():
+            value = got[field][g]
+            value = _lanes_value(value) if value.ndim else int(value)
+            if value != total:
+                raise AssertionError(f"{name}: group {g} {field} {value} != exact {total}")
+    ms = cuda_ms(lambda: ak.q1_sums(*call))
+    plain_ms = cuda_ms(lambda: ak.q1_sums_plain(*call), iters=5)
+    qty, price, disc, tax, rf, ls, ship = cols
+    n = qty.shape[0]
+    rows = min(n, int(count))
+    live = (torch.arange(n, device=dev) < count) & (ship <= cutoff)
+    g = torch.where(live, rf.to(torch.int64) * 2 + ls, ak.GROUPS)
+    dp = price * (100 - disc)
+    charge = dp * (100 + tax)
+    mask = (1 << 32) - 1
+    chans = torch.stack([torch.ones_like(qty), qty, price, disc, dp >> 32, dp & mask,
+                         charge >> 32, charge & mask], dim=1)
+    acc = torch.zeros((ak.GROUPS + 1, ak.CHANNELS), dtype=torch.int64, device=dev)
+    library_ms = cuda_ms(lambda: acc.zero_().index_add_(0, g, chans))
+    selected = int(live.sum())
+    pad = torch.zeros((-n) % 4, dtype=torch.bool, device=dev)
+    sectors = int(torch.cat([live, pad]).view(-1, 4).any(dim=1).sum())
+    nbytes = 12 * rows + 4 * 32 * sectors + ak.GROUPS * ak.CHANNELS * 8
+    del chans, dp, charge, g, live
+    res = {"case": name, "n": n, "count": rows, "selected": selected, "sectors": sectors,
+           "groups_empty": int((got["count"] == 0).sum()), "max_abs_err": float(err),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+    print("phase2", json.dumps(res), flush=True)
+    return res
+
+
+def q1_phase2(page, sf_big=10.0, n_wide=2_000_000, device="cuda"):
+    """The fused-Q1 kernel against its plain version: (a) the SF 1 page of
+    the benchmark path, (b) SF `sf_big`'s lineitem generated on the card,
+    (c) a count below capacity and a cutoff (1995-01-01) that empties the
+    open groups, (d) `n_wide` rows with prices near 2^31 - 1, most in one
+    group, whose sum of charge passes 2^63, held also to Python-int totals."""
+    import numpy as np
+    import torch
+
+    from presto_tpu_torch.benchmark import benchgen, handcoded
+
+    cols = [page.block(c).data for c in handcoded.Q1_COLUMNS]
+    results = [q1_kernel_case("q1_sf1_page", cols, page.count, Q1_CUTOFF)]
+
+    t0 = time.perf_counter()
+    big = benchgen.device_page("lineitem", sf_big, handcoded.Q1_COLUMNS, device=device)
+    torch.cuda.synchronize()
+    print(f"phase2 lineitem Q1 columns at SF {sf_big:g} generated on {device} in "
+          f"{time.perf_counter() - t0:.3f} s (rows={big.capacity})", flush=True)
+    results.append(q1_kernel_case(f"q1_sf{sf_big:g}", [big.block(c).data for c in
+                                                      handcoded.Q1_COLUMNS], big.count,
+                                  Q1_CUTOFF))
+    del big
+
+    res = q1_kernel_case("q1_count_and_cutoff", cols, int(page.capacity * 2 // 3),
+                         _days(1995, 1, 1))
+    if res["groups_empty"] < 3:
+        raise AssertionError("the cutoff case emptied fewer than three groups")
+    results.append(res)
+
+    rng = np.random.default_rng(31)
+    n = n_wide
+    rf = rng.integers(0, 3, n).astype(np.int32)
+    ls = rng.integers(0, 2, n).astype(np.int32)
+    rf[: int(0.9 * n)] = 0
+    ls[: int(0.9 * n)] = 0
+    host = {"qty": rng.integers(1, 51, n) * 100,
+            "price": (1 << 31) - 1 - rng.integers(0, 1000, n),
+            "disc": rng.integers(0, 11, n), "tax": rng.integers(0, 9, n),
+            "rf": rf, "ls": ls,
+            "ship": rng.integers(Q1_CUTOFF - 2000, Q1_CUTOFF + 50, n).astype(np.int32)}
+    keep = host["ship"] <= Q1_CUTOFF
+    exact = {}
+    for grp in (0, 3):
+        m = keep & (rf * 2 + ls == grp)
+        dp = host["price"][m] * (100 - host["disc"][m])
+        exact[grp] = {"count": int(m.sum()), "sum_price": sum(host["price"][m].tolist()),
+                      "sum_disc_price": sum(dp.tolist()),
+                      "sum_charge": sum((dp * (100 + host["tax"][m])).tolist())}
+    if exact[0]["sum_charge"] < 1 << 63:
+        raise AssertionError("the wide case's sum of charge does not pass 2^63")
+    wide = [torch.from_numpy(host[k]).to(device)
+            for k in ("qty", "price", "disc", "tax", "rf", "ls", "ship")]
+    results.append(q1_kernel_case("q1_sum_charge_past_2^63", wide, n, Q1_CUTOFF, exact))
+    return results
+
+
+def profile_runs(runs, warm_ms, out_dir):
+    """torch.profiler over one warm call of each `runs[label]`: device
+    busy time, its idle share of the unprofiled warm wall time
+    `warm_ms[label]`, and the kernels that took the device time. The full
+    table goes to <out_dir>/profile_<label>.txt."""
     import os
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
-
     os.makedirs(out_dir, exist_ok=True)
-    for q in queries:
-        sess.query(QUERIES[q]).rows()
+    for label, fn in runs.items():
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            sess.query(QUERIES[q]).rows()
+            fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
         events = prof.key_averages()
@@ -709,17 +971,18 @@ def profile_queries(sess, warm_ms, out_dir, queries):
         busy_ms = sum(dev_us(e) for e in device) / 1e3
         top = sorted(device, key=dev_us, reverse=True)[:8]
         ours = {k: sum(dev_us(e) for e in device if k in e.key) / 1e3
-                for k in ("groupby_partials_kernel", "join_insert_kernel", "join_probe_kernel")}
-        print(f"profile Q{q}", json.dumps({
-            "profiled_wall_ms": wall_ms, "warm_wall_ms": warm_ms[q],
+                for k in ("groupby_partials_kernel", "join_insert_kernel", "join_probe_kernel",
+                          "q1_partials_kernel")}
+        print(f"profile {label}", json.dumps({
+            "profiled_wall_ms": wall_ms, "warm_wall_ms": warm_ms[label],
             "device_busy_ms": busy_ms,
-            "idle_share_of_warm_wall": 1.0 - busy_ms / warm_ms[q],
+            "idle_share_of_warm_wall": 1.0 - busy_ms / warm_ms[label],
             "device_launches": sum(e.count for e in device),
             "host_syncs": sum(e.count for e in device if "DtoH" in e.key),
             "our_kernels_device_ms": ours,
             "top_device_ms": {e.key[:70]: dev_us(e) / 1e3 for e in top},
         }), flush=True)
-        with open(os.path.join(out_dir, f"profile_q{q}.txt"), "w") as f:
+        with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
             f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
 
 
@@ -730,6 +993,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from presto_tpu_torch import cuda_build
+    from presto_tpu_torch.benchmark import bench
 
     # phase 1: build
     t0 = time.perf_counter()
@@ -758,8 +1022,13 @@ def main() -> int:
     path_counts["joins"] = _counts()
     report.update(jreport)
     per_query.update(jper)
+    breport, per, path_counts["benchmark"], q1_page = benchmark_path()
+    per_query.update(per)
     print(f"phase3 main-path launches {json.dumps(path_counts)} in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase3 bench", json.dumps(bench.run(1.0, "cuda")), flush=True)
+    print(f"phase3 bench done in {time.perf_counter() - t0:.3f} s", flush=True)
     if per_query[1]["groupby_partials"] < 1:
         raise AssertionError("Q1 did not launch the groupby kernel")
     for q in (3, 5, 17, 18):
@@ -768,6 +1037,13 @@ def main() -> int:
     for q in (3, 17, 18):
         if per_query[q]["join_probe"] < 1:
             raise AssertionError(f"Q{q} did not launch join_probe")
+    for label in ("northstar_q3", "northstar_q5", "northstar_q17", "northstar_q18",
+                  "q18_reached", "q18_shape"):
+        if per_query[label]["join_insert"] < 1:
+            raise AssertionError(f"{label} did not launch join_insert")
+    for label in ("northstar_q3", "northstar_q17", "q18_reached"):
+        if per_query[label]["join_probe"] < 1:
+            raise AssertionError(f"{label} did not launch join_probe")
 
     # phase 2: each kernel against its plain version, at the main paths'
     # shapes and at wider cases
@@ -775,15 +1051,24 @@ def main() -> int:
     cases = phase2(q1_kernel_call(sess, cat))
     inserts, probes, hash_res = join_phase2(sess)
     cases.append(hash_res)
+    q1_cases = q1_phase2(q1_page)
     print(f"phase2 done in {time.perf_counter() - t0:.3f} s", flush=True)
 
     args = sys.argv[1:]
     if "--profile" in args:
-        out_dir = args[args.index("--profile-dir") + 1] if "--profile-dir" in args else "profile_out"
-        profile_queries(sess, {q: r["warm_ms"] for q, r in report.items()}, out_dir,
-                        (1, 6, 3, 18))
+        from presto_tpu_torch.benchmark import handcoded
+        from presto_tpu_torch.benchmark.tpch_sql import QUERIES
 
-    launches = {k: sum(c[k] for c in path_counts.values()) for k in path_counts["joins"]}
+        out_dir = args[args.index("--profile-dir") + 1] if "--profile-dir" in args else "profile_out"
+        runs = {f"Q{q}": (lambda q=q: sess.query(QUERIES[q]).rows()) for q in (1, 6, 3, 18)}
+        warm = {f"Q{q}": report[q]["warm_ms"] for q in (1, 6, 3, 18)}
+        for name in ("q1_local", "q1_local_kernel", "q6_local"):
+            runs[name] = lambda fn=getattr(handcoded, name): fn(q1_page).to_pylist()
+            warm[name] = breport[name]["warm_ms"]
+        profile_runs(runs, warm, out_dir)
+    del q1_page
+
+    launches = {k: sum(c[k] for c in path_counts.values()) for k in _counts()}
     q1 = cases[0]
 
     def entry(name, source, replaces, case, cases, check):
@@ -805,6 +1090,9 @@ def main() -> int:
         entry("join_probe", "presto_tpu_torch/csrc/join_probe.cu",
               "presto_tpu/ops/pallas_join.py:452", probes[0], probes,
               "pos, row and more against the plain version on the same table"),
+        entry("q1_partials", "presto_tpu_torch/csrc/q1_partials.cu",
+              "presto_tpu/ops/pallas_agg.py:45", q1_cases[0], q1_cases,
+              "every field of q1_sums against the plain version (integers: exact)"),
     ]
     print("launches per query (first run): " + json.dumps(per_query))
     print(card_line())

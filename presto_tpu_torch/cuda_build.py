@@ -29,6 +29,7 @@ KERNEL_SOURCES = {
     "groupby_partials": "groupby_partials.cu",
     "join_insert": "join_insert.cu",
     "join_probe": "join_probe.cu",
+    "q1_partials": "q1_partials.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -202,6 +202,14 @@ class DynamicFilterContext:
     def total_pruned(self) -> int:
         return sum(self.scan_pruned.values()) + sum(self.preprobe_pruned.values())
 
+    def snapshot(self) -> dict:
+        """The last query's filters and pruning counts (benchmark/northstar.py)."""
+        return {
+            "filters": {fid: df.describe() for fid, df in self._filters.items()},
+            "scan_pruned": dict(self.scan_pruned),
+            "preprobe_pruned": dict(self.preprobe_pruned),
+        }
+
     def reset(self) -> None:
         self._filters.clear()
         self.scan_pruned.clear()

@@ -7,7 +7,9 @@ MultiChannelGroupByHash.java:54) and the compiled Accumulators
 (operator/aggregation/AccumulatorCompiler.java).
 
 Strategies here: the dense small-domain kernel (ops/groupby_kernel.py,
-tried first by the executor) and, for every other shape, SORT — hash the
+tried first by the executor), DIRECT (`grouped_aggregate_direct`, keys
+that are small-domain codes, driven by the hand-coded benchmark
+pipelines) and, for every other shape, SORT — hash the
 group keys, sort rows by hash, detect run boundaries on the actual key
 values (collisions stay distinct groups), dense group ids via cumsum, then
 segment reductions. Output capacity = max_groups (a planner-provided
@@ -22,6 +24,7 @@ aggregates of the JAX package raise "not ported yet".
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -33,16 +36,6 @@ from ..expr.functions import NotPortedError, Val
 from ..page import Block, Page, to_tensor
 from .hashing import hash_rows, unsigned_order_key
 
-PORTED = (
-    "count", "count_star", "sum", "min", "max", "avg", "checksum",
-    "min_by", "max_by", "percentile",
-    "array_agg", "map_agg", "histogram",
-    "approx_distinct", "hll_registers", "hll_merge",
-    "qsketch", "qsketch_merge",
-    "linreg", "linreg_acc", "linreg_merge",
-    "cmoments", "cmoments_merge",
-    "map_union", "multimap_agg", "num_hist",
-)
 PORTED = ("count", "count_star", "sum", "min", "max", "avg", "checksum",
           "min_by", "max_by")
 
@@ -378,6 +371,112 @@ def _mask_reduce(func, data, contributes, wide=False):
     if data.numel() == 0:
         return torch.full((1,), ident, dtype=data.dtype, device=data.device), has
     return red(torch.where(m, data, full)).reshape(1), has
+
+
+# ---------------------------------------------------------------------------
+# DIRECT strategy (small-domain keys)
+# ---------------------------------------------------------------------------
+
+
+def direct_group_ids(keys: Sequence[Val], domains: Sequence[int], live):
+    """Mixed-radix group id from non-null small-int codes."""
+    gid = torch.zeros(live.shape, dtype=torch.int32, device=live.device)
+    for v, dom in zip(keys, domains):
+        if v.valid is not None:
+            raise NotPortedError("not ported yet: nullable direct group key")
+        gid = gid * dom + v.data.to(torch.int32)
+    return gid
+
+
+DIRECT_FUNCS = ("count", "count_star", "sum", "avg")
+# sub-slots per group of the direct scatter: rows go round-robin over them,
+# so the atomics of a hot group do not queue on one address
+DIRECT_SPREAD = 64
+
+
+def grouped_aggregate_direct(
+    page: Page,
+    group_exprs,
+    group_names,
+    aggs: Sequence[AggSpec],
+    domains: Sequence[int],
+    pre_mask=None,
+) -> Page:
+    """Aggregation when every key is a non-null code in [0, domain), for
+    count/sum/avg over integer and decimal inputs. Every aggregate's
+    channels (its contributing count where its input has nulls, its value
+    or the value's two decimal lanes) go through ONE scatter-add by the
+    mixed-radix group id, each group over DIRECT_SPREAD sub-slots summed
+    after. Output rows are exactly the occupied combinations, compacted."""
+    from . import decimal128 as d128
+    from .filter import compact
+
+    for a in aggs:
+        if a.func not in DIRECT_FUNCS:
+            raise NotPortedError(f"not ported yet: direct aggregate {a.func!r}")
+    dev = page.device
+    live = _masked_live(page, pre_mask)
+    keys, ins = _eval_inputs(page, group_exprs, aggs)
+    num_groups = math.prod(domains)
+    # dead rows -> the overflow group num_groups, dropped below
+    gid = torch.where(live, direct_group_ids(keys, domains, live), num_groups)
+
+    # channel-major (width, n) sources: channel 0 counts live rows
+    # (occupancy, and the count of every aggregate whose input has no nulls)
+    chans, layout, width = [live.to(torch.int64)[None]], [], 1
+    for spec, v in zip(aggs, ins):
+        contributes = _agg_contributes(v, live)
+        cnt_at = val_at = lanes = 0
+        if v is not None and v.valid is not None:
+            chans.append(contributes.to(torch.int64)[None])
+            cnt_at, width = width, width + 1
+        if spec.func in ("sum", "avg"):
+            if v.data.is_floating_point():
+                raise NotPortedError("not ported yet: direct sum of a float")
+            x = v.data.to(torch.int64)
+            if x.ndim == 2:
+                x = x.T
+            elif _wide_for(spec, v):  # d128.from_int64's lanes, channel-major
+                x = torch.stack([x >> d128.RADIX_BITS, x & d128.MASK32])
+            else:
+                x = x[None]
+            chans.append(torch.where(contributes, x, 0))
+            val_at, lanes = width, x.shape[0]
+            width += lanes
+        layout.append((cnt_at, val_at, lanes))
+    n = live.shape[0]
+    slot = gid.to(torch.int64) * DIRECT_SPREAD + (
+        torch.arange(n, device=dev) & (DIRECT_SPREAD - 1))
+    acc = torch.zeros((width, (num_groups + 1) * DIRECT_SPREAD), dtype=torch.int64, device=dev)
+    acc.index_add_(1, slot, torch.cat(chans))
+    tot = acc.view(width, num_groups + 1, DIRECT_SPREAD).sum(dim=2)[:, :num_groups]
+
+    blocks, names = [], []
+    # group key columns: codes from the group id (mixed radix)
+    rem = torch.arange(num_groups, dtype=torch.int32, device=dev)
+    codes = []
+    for dom in reversed(domains):
+        codes.append(rem % dom)
+        rem = rem // dom
+    codes.reverse()
+    for v, name, code in zip(keys, group_names, codes):
+        blocks.append(Block(code.to(v.data.dtype), v.type, None, v.dict_id))
+        names.append(name)
+
+    for spec, v, (cnt_at, val_at, lanes) in zip(aggs, ins, layout):
+        cnt = tot[cnt_at]
+        if spec.func in ("count", "count_star"):
+            raw, has = cnt, None
+        else:
+            s = tot[val_at:val_at + lanes]
+            s = torch.stack(d128.dnorm(s[0], s[1]), dim=-1) if lanes == 2 else s[0]
+            raw, has = (s if spec.func == "sum" else (s, cnt)), cnt > 0
+        in_t = None if v is None else v.type
+        did = None if v is None else v.dict_id
+        blocks.append(_finalize(spec, raw, has, in_t, did))
+        names.append(spec.name)
+    out = Page.from_blocks(blocks, names, count=num_groups, device=dev)
+    return compact(out, tot[0] > 0)
 
 
 # ---------------------------------------------------------------------------

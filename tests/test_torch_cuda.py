@@ -1,6 +1,6 @@
-"""presto_tpu_torch on an NVIDIA card: the groupby, join-insert and
-join-probe kernels against their plain versions, and TPC-H queries on
-"cuda" against the same queries on "cpu".
+"""presto_tpu_torch on an NVIDIA card: the groupby, join-insert,
+join-probe and fused-Q1 kernels against their plain versions, and TPC-H
+queries and the hand-coded pipelines on "cuda" against the same on "cpu".
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from presto_tpu_torch.benchmark import handcoded
 from presto_tpu_torch.benchmark.tpch_sql import QUERIES
 from presto_tpu_torch.connectors.tpch import TpchCatalog
+from presto_tpu_torch.ops import agg_kernel as ak
 from presto_tpu_torch.ops import groupby_kernel as gk
 from presto_tpu_torch.ops import join_kernel as jk
 from presto_tpu_torch.session import Session
@@ -108,3 +110,32 @@ def test_queries_on_card_equal_cpu(cuda, q):
         assert jk.insert_launches > before[1]
     want = Session(TpchCatalog(0.01, device="cpu"), device="cpu").query(QUERIES[q]).rows()
     assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,cutoff", [(None, 10471), (300_000, 9131)])
+def test_q1_kernel_matches_plain(cuda, count, cutoff):
+    """The fused Q1 kernel over device-generated lineitem (SF 0.1), whole
+    and cut by count and by a cutoff that empties the open groups."""
+    page = handcoded.lineitem_q1_page(0.1, device="cuda")
+    cols = [page.block(c).data for c in handcoded.Q1_COLUMNS]
+    n_live = page.count if count is None else torch.tensor(count, dtype=torch.int32, device=cuda)
+    cut = torch.tensor(cutoff, dtype=torch.int32, device=cuda)
+    before = ak.launches
+    got = ak.q1_sums(*cols, n_live, cut)
+    want = ak.q1_sums_plain(*cols, n_live, cut)
+    torch.cuda.synchronize()
+    assert ak.launches == before + 1
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert (int(got["count"].sum()) < int(n_live)) and (cutoff > 9298 or int(got["count"][1]) == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", ["q1_local", "q1_local_kernel", "q6_local"])
+def test_handcoded_on_card_equal_cpu(cuda, pipeline):
+    before = ak.launches
+    fn = getattr(handcoded, pipeline)
+    got = fn(handcoded.lineitem_q1_page(0.01, device="cuda")).to_pylist()
+    assert (ak.launches > before) == (pipeline == "q1_local_kernel")
+    assert got == fn(handcoded.lineitem_q1_page(0.01, device="cpu")).to_pylist()
