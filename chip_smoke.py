@@ -5,7 +5,9 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--profile [--profile-dir DIR]]
 
 Phase 1 builds every CUDA kernel of the package from csrc/ (nvcc, sm_90a),
-one nvcc per source, all started together.
+one nvcc per source, all started together, prints ptxas's registers and
+spills of every kernel instance, and checks the group-by kernel's
+parameter struct as the build lays it out against its ctypes twin.
 Phase 3 (run before phase 2) drives the main paths at SF 1, each with every
 kernel's launch count set to 0 just before it and read just after:
 through `Session(TpchCatalog(1.0), device="cuda").query(...)`, TPC-H Q1
@@ -19,14 +21,16 @@ Q18-shaped customer rollup (both must return rows), and the benchmark
 entry point `benchmark.bench.run(1.0, "cuda")`, whose JSON line it prints.
 Rows are checked against independent numpy computations over the same
 generated columns (exact integer arithmetic; the device-generated data
-through its host twin), and the script checks that Q1 launched the
-group-by kernel, that join_insert launched on each join query and
+through its host twin), and the script checks that Q1, Q5 and Q18
+launched the group-by kernel, that join_insert launched on each join query and
 join_probe on Q3, Q17 and Q18 (on both catalogs; on the device catalog
 the reached Q18 in its place), and that q1_local_kernel, and only it,
 launched the fused-Q1 kernel.
 Phase 2 holds each kernel against its plain PyTorch version on the card:
-the group-by kernel at Q1's shapes, two wider cases and Q18's hash-slot
-call; join_insert and join_probe at the largest calls the join queries
+the group-by kernel at Q1's, Q5's and Q18's (hash-slot) calls, two wider
+G 64 cases and the edges of its regimes and grid (GROUPBY_EDGES), and
+shows under torch.profiler that one groupby_totals call is one kernel
+launch with no host<->device copy or stream synchronise; join_insert and join_probe at the largest calls the join queries
 make (captured in one more run of them), at the top of the table path's
 range (4,194,304 build rows, 6,000,859 probe rows), with a skewed key and
 with a varchar key; the fused-Q1 kernel on the SF 1 page, on SF 10's
@@ -37,10 +41,11 @@ version, one PyTorch library call where one computes the same function,
 and the byte bound.
 It prints the card's name and power limit, a `{"kernels": [...]}` JSON
 line, and last `{"ok": true, "device": {...}}`. Any failed phase exits
-nonzero. With --profile it also traces one warm Q1, Q6, Q3 and Q18 and
-one warm run of each hand-coded pipeline with torch.profiler (device busy
-time, idle share, host syncs, our kernels' device time, top ops; full
-tables under DIR, by default profile_out/).
+nonzero. With --profile it also traces one warm Q1, Q6, Q3, Q5 and Q18
+and one warm run of each hand-coded pipeline with torch.profiler (device
+busy time, idle share, device-to-host and host-to-device copies, stream
+synchronises, our kernels' device time, top ops; full tables under DIR,
+by default profile_out/).
 """
 
 import datetime
@@ -80,47 +85,197 @@ def cuda_ms(fn, iters=20, warmup=3):
 # -- phase 2: kernel against plain version ---------------------------------
 
 
-def kernel_case(name, call, tol_fn):
+def exact(call):
+    """Integer totals are exact."""
+    return 0.0
+
+
+def f64_tol(call):
+    """float64 sums add in no fixed order (atomics, the cross-block fold),
+    so the totals may differ from a sequential sum by rounding."""
+    from presto_tpu_torch.ops import groupby_kernel as gk
+
+    gid, live, count, chans, kinds, sources, G = call
+    mag = gk.groupby_totals_plain(gid, live, count, [c.abs() for c in chans], kinds, sources, G)
+    return 1e-12 * mag + 1e-9
+
+
+def kernel_case(name, call, tol_fn, expect=None, one_launch=False):
     """Compare groupby_totals (kernel) with groupby_totals_plain on one
-    call's inputs; returns a result dict."""
+    call's inputs; `expect` may hold the "register" regime (True/False)
+    and "blocks" the launch must take; `one_launch` adds
+    one_launch_check. Returns a result dict."""
     import torch
 
     from presto_tpu_torch.ops import groupby_kernel as gk
 
     gid, live, count, chans, kinds, sources, G = call
+    chans = [] if chans is None else list(chans)
+    dtype = chans[0].dtype if chans else torch.int64
+    n = gid.shape[0]
+    regime, blocks = gk.launch_shape(gid.device, dtype, n, G, len(kinds)) if n else (None, 0)
+    for key, got_v in (("register", regime is not None and regime != gk.ATOMIC),
+                       ("blocks", blocks)):
+        if expect and key in expect and expect[key] != got_v:
+            raise AssertionError(f"{name}: {key} {got_v}, expected {expect[key]}")
     got = gk.groupby_totals(*call)
     want = gk.groupby_totals_plain(*call)
     torch.cuda.synchronize()
     err = (got.to(torch.float64) - want.to(torch.float64)).abs()
     max_err = float(err.max()) if err.numel() else 0.0
     tol = tol_fn(call)
-    if not bool((err <= tol).all()):
+    if got.dtype != want.dtype or got.shape != want.shape or not bool((err <= tol).all()):
         raise AssertionError(f"{name}: kernel disagrees with plain version, max err {max_err}")
+    if tol_fn is exact and not torch.equal(got, want):
+        raise AssertionError(f"{name}: integer totals differ from the plain version")
     ms = cuda_ms(lambda: gk.groupby_totals(*call))
     plain_ms = cuda_ms(lambda: gk.groupby_totals_plain(*call), iters=5)
     # library yardstick: ONE index_add_ of the ADD channels into G+1 slots
-    n = gid.shape[0]
-    sel = live & (torch.arange(n, device=gid.device) < count)
+    sel = live & (gid >= 0) & (gid < G)
+    if count is not None:
+        sel = sel & (torch.arange(n, device=gid.device) < count)
     g = torch.where(sel, gid.to(torch.int64), G)
     add_rows = [s for k, s in zip(kinds, sources) if k == gk.ADD]
     library_ms = None
-    if chans is not None and add_rows:
-        src = chans[add_rows].contiguous()
+    if add_rows:
+        src = torch.stack([chans[s] for s in add_rows])
         acc = torch.zeros((src.shape[0], G + 1), dtype=src.dtype, device=src.device)
         library_ms = cuda_ms(lambda: acc.zero_().index_add_(1, g, src))
+        del src, acc
     # least bytes: gid + live for every row, each data channel for the rows
     # this data selects, the (G, K) totals written once
     rows_used = int(sel.sum())
-    d = 0 if chans is None else chans.shape[0]
-    nbytes = n * (4 + 1) + 4 + rows_used * 8 * d + G * len(kinds) * 8
+    d = len(chans)
+    nbytes = n * (4 + 1) + (0 if count is None else 4) + rows_used * 8 * d + G * len(kinds) * 8
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     res = {
         "case": name, "n": n, "G": G, "K": len(kinds), "D": d, "dtype": str(got.dtype),
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms, "bytes": nbytes,
+        "regime": regime, "blocks": blocks, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bytes": nbytes,
     }
     print("phase2", json.dumps(res), flush=True)
+    if one_launch:
+        one_launch_check(name, call)
     return res
+
+
+def one_launch_check(name, call):
+    """One warm groupby_totals call under torch.profiler: exactly one
+    kernel launch (the launch count +1, one cudaLaunchKernel, one device
+    kernel: no fold after it), no host<->device copy and no
+    cudaStreamSynchronize. The one cudaDeviceSynchronize is the check's own,
+    closing the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from presto_tpu_torch.ops import groupby_kernel as gk
+
+    gk.groupby_totals(*call)
+    torch.cuda.synchronize()
+    before = gk.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gk.groupby_totals(*call)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def count(pred):
+        return sum(e.count for e in events if pred(e))
+
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    res = {
+        "case": name, "launches": gk.launches - before,
+        "cuda_launch_kernel": count(lambda e: e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                        "cudaLaunchKernelExC")),
+        "device_events": {e.key[:60]: e.count for e in device},
+        "memcpy": count(lambda e: "Memcpy" in e.key or e.key.startswith("cudaMemcpy")),
+        "stream_syncs": count(lambda e: e.key == "cudaStreamSynchronize"),
+        "device_syncs": count(lambda e: e.key == "cudaDeviceSynchronize"),
+    }
+    print("phase2 one_launch", json.dumps(res), flush=True)
+    ours = sum(c for k, c in res["device_events"].items() if "groupby_" in k)
+    if (res["launches"] != 1 or res["cuda_launch_kernel"] != 1 or ours != 1
+            or sum(res["device_events"].values()) != 1 or res["memcpy"] or res["stream_syncs"]):
+        raise AssertionError(f"{name}: a groupby_totals call is not one launch without copies "
+                             f"or syncs: {res}")
+    return res
+
+
+# names of groupby_edge_cases' cases, in order
+GROUPBY_EDGES = (
+    "register_limit_g8_k8", "above_register_limit_g13_k5", "n1", "one_block_share",
+    "one_block_share_plus_1", "one_block_share_plus_1_atomic", "count_below_n", "every_row_dead",
+    "empty_group_min_max", "int64_sums_past_2^53", "min_max_int64_extremes", "f64_channel_list",
+    "f64_g64_channel_list", "unaligned_odd_n",
+)
+
+
+def groupby_edge_cases(dev, n_big=1_000_000):
+    """{name: (call, tolerance, expect)}: groupby_totals calls at the edges
+    of the kernel's regimes and grid (see GROUPBY_EDGES), from a seed."""
+    import numpy as np
+    import torch
+
+    from presto_tpu_torch.ops import groupby_kernel as gk
+
+    rng = np.random.default_rng(23)
+    dev = torch.device(dev)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def rows(n, G, live_p=0.9, groups=None):
+        return (t(rng.integers(0, groups or G, n).astype(np.int32)), t(rng.random(n) < live_p))
+
+    def ints(n, d, lo=-(1 << 40), hi=1 << 40):
+        return [t(rng.integers(lo, hi, n)) for _ in range(d)]
+
+    C, A, MN, MX = gk.COUNT, gk.ADD, gk.MIN, gk.MAX
+    q1_kinds, q1_src = [C, A, A, A, A, A], [-1, 0, 1, 2, 3, 4]
+    share = gk.ROWS_PER_BLOCK
+    cases = {}
+    cases["register_limit_g8_k8"] = (
+        (*rows(n_big, 8), None, ints(n_big, 4), [C, A, MN, MX, C, A, MN, MX],
+         [-1, 0, 1, 2, -1, 3, 0, 1], 8), exact, {"register": True})
+    cases["above_register_limit_g13_k5"] = (
+        (*rows(n_big, 13), None, ints(n_big, 4), [C, A, MN, MX, A], [-1, 0, 1, 2, 3], 13),
+        exact, {"register": False})
+    cases["n1"] = ((t(np.array([3], np.int32)), t(np.array([True])), None, ints(1, 5), q1_kinds,
+                    q1_src, 6), exact, {"register": True, "blocks": 1})
+    for name, n, G, kinds, src, expect in (
+        ("one_block_share", share, 6, q1_kinds, q1_src, {"register": True, "blocks": 1}),
+        ("one_block_share_plus_1", share + 1, 6, q1_kinds, q1_src,
+         {"register": True, "blocks": 2}),
+        ("one_block_share_plus_1_atomic", share + 1, 75, [C, A], [-1, 0],
+         {"register": False, "blocks": 2}),
+    ):
+        cases[name] = ((*rows(n, G), None, ints(n, max(src) + 1), kinds, src, G), exact, expect)
+    count = t(np.array(n_big // 3, np.int32)).reshape(())
+    cases["count_below_n"] = ((*rows(n_big, 6), count, ints(n_big, 5), q1_kinds, q1_src, 6),
+                              exact, {"register": True})
+    cases["every_row_dead"] = ((*rows(n_big, 6, live_p=0.0), None, ints(n_big, 3),
+                                [C, A, MN, MX], [-1, 0, 1, 2], 6), exact, None)
+    cases["empty_group_min_max"] = ((*rows(n_big, 8, groups=7), None, ints(n_big, 2),
+                                     [C, MN, MX], [-1, 0, 1], 8), exact, None)
+    # 1M values in [2^40, 2^41) over 4 groups: each sum near 2^58
+    cases["int64_sums_past_2^53"] = ((*rows(n_big, 4), None, ints(n_big, 2, 1 << 40, 1 << 41),
+                                      [C, A, A], [-1, 0, 1], 4), exact, {"register": True})
+    ext = rng.integers(-(1 << 63), (1 << 63) - 1, (2, n_big), dtype=np.int64, endpoint=True)
+    ext[:, rng.integers(0, n_big, 64)] = np.iinfo(np.int64).min
+    ext[:, rng.integers(0, n_big, 64)] = np.iinfo(np.int64).max
+    cases["min_max_int64_extremes"] = ((*rows(n_big, 6), None, [t(ext[0]), t(ext[1])],
+                                        [MN, MX, MN, MX], [0, 0, 1, 1], 6), exact, None)
+    fx = [t(rng.normal(0.0, 1e3, n_big)) for _ in range(2)]
+    cases["f64_channel_list"] = ((*rows(n_big, 6), None, fx, [A, A, C], [0, 1, -1], 6), f64_tol,
+                                 {"register": True})
+    cases["f64_g64_channel_list"] = ((*rows(n_big, 64), None, fx, [A, A, C], [0, 1, -1], 64),
+                                     f64_tol, {"register": False})
+    # odd n: rows of a (D, n) tensor are not 16-byte aligned, so the
+    # kernel takes its one-row loads
+    n = n_big + 1
+    cases["unaligned_odd_n"] = ((*rows(n, 6), None, t(rng.integers(-(1 << 40), 1 << 40, (3, n))),
+                                 [C, A, MN, MX], [-1, 0, 1, 2], 6), exact, None)
+    assert tuple(cases) == GROUPBY_EDGES
+    return cases
 
 
 def phase2(q1_call):
@@ -129,8 +284,7 @@ def phase2(q1_call):
 
     from presto_tpu_torch.ops import groupby_kernel as gk
 
-    exact = lambda call: 0.0  # noqa: E731 — integer totals are exact
-    results = [kernel_case("q1_sf1", q1_call, exact)]
+    results = [kernel_case("q1_sf1", q1_call, exact, {"register": True}, one_launch=True)]
     rng = np.random.default_rng(7)
     n = 6_000_859
     dev = torch.device("cuda")
@@ -142,16 +296,12 @@ def phase2(q1_call):
     call = (gid, live, count, vals.contiguous(), [gk.COUNT, gk.ADD, gk.MIN, gk.MAX],
             [-1, 0, 1, 2], 64)
     results.append(kernel_case("g64_int64_sum_min_max", call, exact))
-    # float64 sums: shared-memory atomics add in no fixed order, so the
-    # totals may differ from a sequential sum by rounding: 1e-12 * sum|x|
     fx = torch.from_numpy(rng.normal(0.0, 1e3, (2, n))).to(dev)
     fcall = (gid, live, count, fx.contiguous(), [gk.ADD, gk.ADD], [0, 1], 64)
-
-    def f_tol(c):
-        mag = gk.groupby_totals_plain(c[0], c[1], c[2], c[3].abs(), c[4], c[5], c[6])
-        return 1e-12 * mag + 1e-9
-
-    results.append(kernel_case("g64_f64_sum", fcall, f_tol))
+    results.append(kernel_case("g64_f64_sum", fcall, f64_tol))
+    del gid, live, vals, fx, call, fcall
+    for name, (call, tol, expect) in groupby_edge_cases(dev).items():
+        results.append(kernel_case(name, call, tol, expect))
     return results
 
 
@@ -551,12 +701,12 @@ def capture_calls(sess, queries=(3, 5, 17, 18)):
     """One more run of the join queries with the kernel wrappers wrapped:
     the join_insert call with the most rows to insert and the join_probe
     call with the most probe rows (with the query each came from), and
-    Q18's groupby_totals calls."""
+    Q5's and Q18's groupby_totals calls."""
     from presto_tpu_torch.benchmark.tpch_sql import QUERIES
     from presto_tpu_torch.ops import groupby_kernel as gk
     from presto_tpu_torch.ops import join_kernel as jk
 
-    rec = {"insert": None, "probe": None, "q18_totals": []}
+    rec = {"insert": None, "probe": None, "q5_totals": [], "q18_totals": []}
     orig = jk.join_insert, jk.join_probe, gk.groupby_totals
     cur = [None]
 
@@ -572,8 +722,8 @@ def capture_calls(sess, queries=(3, 5, 17, 18)):
         return orig[1](slot_tag, slot_row, tag, desired, start, max_scan)
 
     def totals(*call):
-        if cur[0] == 18:
-            rec["q18_totals"].append(call)
+        if cur[0] in (5, 18):
+            rec[f"q{cur[0]}_totals"].append(call)
         return orig[2](*call)
 
     jk.join_insert, jk.join_probe, gk.groupby_totals = insert, probe, totals
@@ -727,7 +877,8 @@ def join_phase2(sess, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
     the four queries make, the top of the table path's range (a build of
     n_max rows, TABLE_MAX_BUILD by default, probed by m_max rows), a skewed
     key and a varchar key (n_small rows each). Returns (insert results,
-    probe results, Q18's hash-slot groupby result)."""
+    probe results, group-by results at Q18's hash-slot call and Q5's dense
+    call)."""
     import numpy as np
     import torch
 
@@ -811,10 +962,14 @@ def join_phase2(sess, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
         raise AssertionError("varchar table join on the card differs from the CPU")
     print(f"phase2 varchar join rows={int(got.count)} equal to the CPU", flush=True)
 
-    # the hash-slot group-by call of Q18's outer aggregate
+    # the hash-slot group-by call of Q18's outer aggregate, and Q5's dense
+    # call (revenue by nation, G 25)
     (call,) = rec["q18_totals"]
-    hash_res = kernel_case("q18_hash_slot", call, lambda c: 0.0)
-    return inserts, probes, hash_res
+    groupby = [kernel_case("q18_hash_slot", call, exact, {"register": False, "blocks": 1},
+                           one_launch=True)]
+    (call,) = rec["q5_totals"]
+    groupby.append(kernel_case("q5_dense", call, exact, {"register": True}, one_launch=True))
+    return inserts, probes, groupby
 
 
 # -- phase 2: the fused-Q1 kernel against its plain version -----------------
@@ -943,8 +1098,12 @@ def q1_phase2(page, sf_big=10.0, n_wide=2_000_000, device="cuda"):
 def profile_runs(runs, warm_ms, out_dir):
     """torch.profiler over one warm call of each `runs[label]`: device
     busy time, its idle share of the unprofiled warm wall time
-    `warm_ms[label]`, and the kernels that took the device time. The full
-    table goes to <out_dir>/profile_<label>.txt."""
+    `warm_ms[label]`, the kernels that took the device time, and the host
+    syncs: `host_syncs` counts device-to-host copies (as in PR 3's
+    records), `htod_copies` host-to-device copies, and `stream_syncs` the
+    CPU-side cudaStreamSynchronize / cudaDeviceSynchronize calls, less the
+    one that closes the profiled window. The full table goes to
+    <out_dir>/profile_<label>.txt."""
     import os
 
     import torch
@@ -971,19 +1130,39 @@ def profile_runs(runs, warm_ms, out_dir):
         busy_ms = sum(dev_us(e) for e in device) / 1e3
         top = sorted(device, key=dev_us, reverse=True)[:8]
         ours = {k: sum(dev_us(e) for e in device if k in e.key) / 1e3
-                for k in ("groupby_partials_kernel", "join_insert_kernel", "join_probe_kernel",
-                          "q1_partials_kernel")}
+                for k in ("groupby_tile_kernel", "groupby_atomic_kernel", "join_insert_kernel",
+                          "join_probe_kernel", "q1_partials_kernel")}
+        syncs = sum(e.count for e in events
+                    if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
         print(f"profile {label}", json.dumps({
             "profiled_wall_ms": wall_ms, "warm_wall_ms": warm_ms[label],
             "device_busy_ms": busy_ms,
             "idle_share_of_warm_wall": 1.0 - busy_ms / warm_ms[label],
             "device_launches": sum(e.count for e in device),
             "host_syncs": sum(e.count for e in device if "DtoH" in e.key),
+            "htod_copies": sum(e.count for e in device if "HtoD" in e.key),
+            "stream_syncs": syncs - 1,
             "our_kernels_device_ms": ours,
             "top_device_ms": {e.key[:70]: dev_us(e) / 1e3 for e in top},
         }), flush=True)
         with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
             f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
+
+
+def check_params_layout():
+    """The group-by kernel's GroupbyParams as the card's build lays it out
+    (sizeof, then each field's offset) against the ctypes struct that packs
+    it."""
+    import ctypes
+
+    from presto_tpu_torch.ops import groupby_kernel as gk
+
+    want = [ctypes.sizeof(gk.GroupbyParams)] + [
+        getattr(gk.GroupbyParams, f).offset for f, _ in gk.GroupbyParams._fields_]
+    got = gk.params_layout()
+    print(f"phase1 GroupbyParams layout (size, offsets) {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"GroupbyParams: C layout {got} != ctypes {want}")
 
 
 def main() -> int:
@@ -1001,9 +1180,11 @@ def main() -> int:
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "error" in line.lower():
+            if any(w in line for w in ("Compiling entry", "registers", "spill")) or (
+                    "error" in line.lower()):
                 print(f"phase1 {name}: {line.strip()}")
     print(f"phase1 built {len(logs)} kernel libraries in {secs:.3f} s", flush=True)
+    check_params_layout()
 
     sess, cat = make_session()
     tables = {name: cat.host_table(name) for name in TPCH_TABLES}
@@ -1029,8 +1210,9 @@ def main() -> int:
     t0 = time.perf_counter()
     print("phase3 bench", json.dumps(bench.run(1.0, "cuda")), flush=True)
     print(f"phase3 bench done in {time.perf_counter() - t0:.3f} s", flush=True)
-    if per_query[1]["groupby_partials"] < 1:
-        raise AssertionError("Q1 did not launch the groupby kernel")
+    for q in (1, 5, 18):
+        if per_query[q]["groupby_partials"] < 1:
+            raise AssertionError(f"Q{q} did not launch the groupby kernel")
     for q in (3, 5, 17, 18):
         if per_query[q]["join_insert"] < 1:
             raise AssertionError(f"Q{q} did not launch join_insert")
@@ -1049,8 +1231,8 @@ def main() -> int:
     # shapes and at wider cases
     t0 = time.perf_counter()
     cases = phase2(q1_kernel_call(sess, cat))
-    inserts, probes, hash_res = join_phase2(sess)
-    cases.append(hash_res)
+    inserts, probes, groupby = join_phase2(sess)
+    cases += groupby
     q1_cases = q1_phase2(q1_page)
     print(f"phase2 done in {time.perf_counter() - t0:.3f} s", flush=True)
 
@@ -1060,8 +1242,8 @@ def main() -> int:
         from presto_tpu_torch.benchmark.tpch_sql import QUERIES
 
         out_dir = args[args.index("--profile-dir") + 1] if "--profile-dir" in args else "profile_out"
-        runs = {f"Q{q}": (lambda q=q: sess.query(QUERIES[q]).rows()) for q in (1, 6, 3, 18)}
-        warm = {f"Q{q}": report[q]["warm_ms"] for q in (1, 6, 3, 18)}
+        runs = {f"Q{q}": (lambda q=q: sess.query(QUERIES[q]).rows()) for q in (1, 6, 3, 5, 18)}
+        warm = {f"Q{q}": report[q]["warm_ms"] for q in (1, 6, 3, 5, 18)}
         for name in ("q1_local", "q1_local_kernel", "q6_local"):
             runs[name] = lambda fn=getattr(handcoded, name): fn(q1_page).to_pylist()
             warm[name] = breport[name]["warm_ms"]

@@ -9,10 +9,12 @@ any value get slot-ranked group ids, then the same pass. The eligibility
 rules are the JAX package's, unchanged, so the same queries take the same
 strategy.
 
-`groupby_totals` is the kernel's wrapper: for CUDA tensors it launches
-csrc/groupby_partials.cu (which replaces pallas_groupby.py::_kernel_factory)
-and folds the per-block partials; for CPU tensors it runs
-`groupby_totals_plain`, the same function in plain torch. There is no fault
+`groupby_totals` is the kernel's wrapper: for CUDA tensors it makes ONE
+launch of csrc/groupby_partials.cu (which replaces
+pallas_groupby.py::_kernel_factory), which writes the (G, K) totals itself;
+for CPU tensors it runs `groupby_totals_plain`, the same function in plain
+torch. A launch copies nothing between host and device: the channel kinds
+and pointers travel by value in one GroupbyParams struct. There is no fault
 fallback: a kernel that fails to build or launch fails the query.
 """
 
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +35,18 @@ from .aggregate import AggSpec, _masked_live, avg_from_sum_count, max_identity, 
 MAX_GROUPS = 64  # PALLAS_MAX_GROUPS of the JAX package
 MAX_CHANNELS = 128
 ADD, MIN, MAX, COUNT = 0, 1, 2, 3
-THREADS = 256
+
+# launch shape (csrc/groupby_partials.cu, 256 threads a block): one block
+# per ROWS_PER_BLOCK rows, at most MAX_BLOCKS_PER_SM resident blocks per SM
+ROWS_PER_BLOCK = 4096
+MAX_BLOCKS_PER_SM = 2
+# regimes: ATOMIC keeps the tile in shared memory; regime i >= 1 keeps it
+# in registers, REGISTER_TILES[i - 1] = (channels, groups) a thread, with
+# the channels split over up to MAX_SLICES slices of the block's threads:
+# K <= channels * MAX_SLICES and G <= groups
+ATOMIC = 0
+REGISTER_TILES = ((4, 4), (4, 8), (2, 16), (1, 32))
+MAX_SLICES = 2
 
 # launches of the CUDA kernel (one per groupby_totals call on a CUDA tensor)
 launches = 0
@@ -46,15 +59,23 @@ def _rows_pad(num_groups: int, num_channels: int) -> int:
     return -(-(num_groups * num_channels) // 8) * 8
 
 
+def _channel_list(channels) -> List[torch.Tensor]:
+    """A (D, n) tensor, a sequence of D length-n vectors, or None -> the
+    list of D vectors (a tensor's rows are views)."""
+    return [] if channels is None else list(channels)
+
+
 def groupby_totals_plain(gid, live, count, channels, kinds, sources, num_groups):
     """(G, K) totals in plain torch: channel k of group g reduces
     channels[sources[k]] (kind ADD/MIN/MAX) or counts rows (COUNT) over rows
-    with row < count, live and gid == g."""
+    with row < count (every row when count is None), live and gid == g."""
+    chans = _channel_list(channels)
     n = gid.shape[0]
     dev = gid.device
-    dtype = torch.int64 if channels is None else channels.dtype
-    sel = live & (torch.arange(n, device=dev) < count)
-    sel = sel & (gid >= 0) & (gid < num_groups)
+    dtype = chans[0].dtype if chans else torch.int64
+    sel = live & (gid >= 0) & (gid < num_groups)
+    if count is not None:
+        sel = sel & (torch.arange(n, device=dev) < count)
     g = torch.where(sel, gid.to(torch.int64), num_groups)  # overflow slot
     cols = []
     for kind, src in zip(kinds, sources):
@@ -63,112 +84,212 @@ def groupby_totals_plain(gid, live, count, channels, kinds, sources, num_groups)
             col.index_add_(0, g, torch.ones(n, dtype=dtype, device=dev))
         elif kind == ADD:
             col = torch.zeros(num_groups + 1, dtype=dtype, device=dev)
-            col.index_add_(0, g, channels[src])
+            col.index_add_(0, g, chans[src])
         else:
             ident = min_identity(dtype) if kind == MIN else max_identity(dtype)
             col = torch.full((num_groups + 1,), ident, dtype=dtype, device=dev)
-            col.scatter_reduce_(0, g, channels[src], "amin" if kind == MIN else "amax")
+            col.scatter_reduce_(0, g, chans[src], "amin" if kind == MIN else "amax")
         cols.append(col[:num_groups])
     return torch.stack(cols, dim=1)
 
 
-def _check_inputs(gid, live, count, channels, kinds, sources, num_groups):
+def _check_inputs(gid, live, count, chans, kinds, sources, num_groups):
     dev = gid.device
     if gid.dtype != torch.int32 or gid.ndim != 1 or not gid.is_contiguous():
         raise ValueError("gid must be a contiguous int32 vector")
     n = gid.shape[0]
     if live.dtype != torch.bool or live.shape != (n,) or not live.is_contiguous():
         raise ValueError("live must be a contiguous bool vector of gid's length")
-    if count.dtype != torch.int32 or count.numel() != 1:
-        raise ValueError("count must be one int32")
-    if channels is not None:
-        if channels.dtype not in (torch.int64, torch.float64):
+    if count is not None and (count.dtype != torch.int32 or count.numel() != 1):
+        raise ValueError("count must be one int32 or None")
+    if chans:
+        dtype = chans[0].dtype
+        if dtype not in (torch.int64, torch.float64):
             raise ValueError("channels must be int64 or float64")
-        if channels.ndim != 2 or channels.shape[1] != n or not channels.is_contiguous():
-            raise ValueError("channels must be a contiguous (D, n) tensor")
-        if channels.dtype == torch.float64 and any(k in (MIN, MAX) for k in kinds):
+        for c in chans:
+            if c.dtype != dtype or c.shape != (n,) or not c.is_contiguous():
+                raise ValueError("channels must be contiguous vectors of one dtype, gid's length")
+        if dtype == torch.float64 and any(k in (MIN, MAX) for k in kinds):
             raise ValueError("float64 channels take ADD only")
     if not 0 < len(kinds) <= MAX_CHANNELS or len(kinds) != len(sources):
         raise ValueError(f"need 1..{MAX_CHANNELS} channels with one source each")
-    d = 0 if channels is None else channels.shape[0]
     for k, s in zip(kinds, sources):
-        if k not in (ADD, MIN, MAX, COUNT) or (k != COUNT and not 0 <= s < d):
+        if k not in (ADD, MIN, MAX, COUNT) or (k != COUNT and not 0 <= s < len(chans)):
             raise ValueError(f"bad channel kind/source {k}/{s}")
     if not 0 < num_groups <= 4096:
         raise ValueError("num_groups out of range")
-    for t in (live, count) + (() if channels is None else (channels,)):
+    for t in [live] + ([] if count is None else [count]) + chans:
         if t.device != dev:
             raise ValueError("all inputs must be on one device")
 
 
-def _kernel_fn(dtype):
-    """The C entry point for `dtype`'s channels, built and bound at first use."""
-    from .. import cuda_build
+class GroupbyParams(ctypes.Structure):
+    """csrc/groupby_partials.cu's GroupbyParams, field for field: passed by
+    pointer to the C entry, which copies it into the launch."""
 
-    lib = cuda_build.load("groupby_partials")
-    fn = lib.groupby_partials_f64 if dtype == torch.float64 else lib.groupby_partials_i64
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    _fields_ = [
+        ("gid", ctypes.c_void_p),
+        ("live", ctypes.c_void_p),
+        ("count", ctypes.c_void_p),  # None: all n rows
+        ("out", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
+        ("ticket", ctypes.c_void_p),
+        ("n", ctypes.c_longlong),
+        ("G", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("aligned", ctypes.c_int),
+        ("kind", ctypes.c_int * MAX_CHANNELS),
+        ("chan", ctypes.c_void_p * MAX_CHANNELS),
+    ]
+
+
+def pack_params(gid, live, count, out, scratch, ticket, n, num_groups, kinds, chans,
+                aligned) -> GroupbyParams:
+    """The launch's parameters from device addresses (ints, 0 for none):
+    `chans[k]` is output channel k's vector (0 for COUNT)."""
+    p = GroupbyParams(gid, live, count or None, out, scratch or None, ticket or None, n,
+                      num_groups, len(kinds), int(aligned))
+    p.kind[:len(kinds)] = kinds
+    p.chan[:len(chans)] = [c or None for c in chans]
+    return p
+
+
+def register_regime(num_groups: int, num_channels: int) -> int:
+    """The first register tile that holds (G, K), else ATOMIC."""
+    for i, (kb, gb) in enumerate(REGISTER_TILES):
+        if num_channels <= kb * MAX_SLICES and num_groups <= gb:
+            return i + 1
+    return ATOMIC
+
+
+def launch_plan(n: int, num_groups: int, num_channels: int, sms: int,
+                blocks_per_sm: int) -> Tuple[int, int]:
+    """(regime, blocks) of one launch: one block per ROWS_PER_BLOCK rows,
+    no more than the SMs hold at once (at most MAX_BLOCKS_PER_SM each)."""
+    regime = register_regime(num_groups, num_channels)
+    want = -(-n // ROWS_PER_BLOCK)
+    resident = sms * max(1, min(blocks_per_sm, MAX_BLOCKS_PER_SM))
+    return regime, max(1, min(want, resident))
+
+
+_LIB = None
+_DEVICES: Dict[int, tuple] = {}  # device index -> (SM count, ticket counter)
+_PLANS: Dict[tuple, tuple] = {}  # (device, dtype, n, G, K) -> (regime, blocks, ticket)
+
+
+def _lib():
+    """The kernel library, built and bound at first use."""
+    global _LIB
+    if _LIB is None:
+        from .. import cuda_build
+
+        lib = cuda_build.load("groupby_partials")
+        lib.groupby_totals_launch.restype = ctypes.c_int
+        lib.groupby_totals_launch.argtypes = [
+            ctypes.POINTER(GroupbyParams), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
-    return fn
+        lib.groupby_blocks_per_sm.restype = ctypes.c_int
+        lib.groupby_blocks_per_sm.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.groupby_params_layout.restype = ctypes.c_int
+        lib.groupby_params_layout.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        _LIB = lib
+    return _LIB
 
 
-def _launch(gid, live, count, channels, kinds, sources, num_groups):
-    """Launch csrc/groupby_partials.cu on the current stream and fold its
-    per-block partials: (G, K) totals."""
+def params_layout() -> List[int]:
+    """sizeof(GroupbyParams) and its field offsets as the C side reads them
+    (the card's build; compare with `GroupbyParams`)."""
+    buf = (ctypes.c_longlong * 16)()
+    n = _lib().groupby_params_layout(buf)
+    return list(buf[:n])
+
+
+def _plan(idx: int, dtype, n: int, num_groups: int, num_channels: int) -> tuple:
+    """(regime, blocks, ticket counter) of a launch on CUDA device `idx`,
+    worked out once per shape (the SM count, the kernel instance's
+    resident blocks per SM) and cached."""
+    key = (idx, dtype, n, num_groups, num_channels)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    if idx not in _DEVICES:
+        dev = torch.device("cuda", idx)
+        _DEVICES[idx] = (torch.cuda.get_device_properties(idx).multi_processor_count,
+                         torch.zeros(1, dtype=torch.int32, device=dev))
+    sms, ticket = _DEVICES[idx]
+    regime = register_regime(num_groups, num_channels)
+    occ = ctypes.c_int(0)
+    with torch.cuda.device(idx):
+        rc = _lib().groupby_blocks_per_sm(int(dtype == torch.float64), regime, num_groups,
+                                          num_channels, ctypes.byref(occ))
+    if rc != 0:
+        raise RuntimeError(f"groupby_partials occupancy query failed: cudaError {rc}")
+    if len(_PLANS) >= 4096:
+        _PLANS.clear()
+    plan = _PLANS[key] = launch_plan(n, num_groups, num_channels, sms, occ.value) + (ticket,)
+    return plan
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def launch_shape(dev, dtype, n, num_groups, num_channels) -> Tuple[int, int]:
+    """(regime, blocks) of the launch for these sizes on CUDA device `dev`."""
+    return _plan(_device_index(dev), dtype, n, num_groups, num_channels)[:2]
+
+
+def _launch(gid, live, count, chans, kinds, sources, num_groups):
+    """One launch of csrc/groupby_partials.cu on the current stream: the
+    (G, K) totals."""
     global launches
-    dev = gid.device
+    idx = _device_index(gid.device)
     n = gid.shape[0]
     K = len(kinds)
-    dtype = torch.int64 if channels is None else channels.dtype
-    if dtype == torch.int64 and channels is None:
-        channels = torch.empty((0, n), dtype=torch.int64, device=dev)
-    fn = _kernel_fn(dtype)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-n // THREADS), 4 * sms))
-    meta = torch.tensor(list(kinds) + [max(s, 0) for s in sources], dtype=torch.int32).to(dev)
-    out = torch.empty((blocks, num_groups, K), dtype=dtype, device=dev)
-    count = count.reshape(1).contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(
-        gid.data_ptr(), live.data_ptr(), count.data_ptr(), n, num_groups,
-        channels.data_ptr(), K, meta.data_ptr(), meta[K:].data_ptr(), out.data_ptr(),
-        blocks, THREADS, stream,
-    )
+    dtype = chans[0].dtype if chans else torch.int64
+    regime, blocks, ticket = _plan(idx, dtype, n, num_groups, K)
+    out = torch.empty((num_groups, K), dtype=dtype, device=gid.device)
+    scratch = None
+    if blocks > 1:
+        scratch = torch.empty((blocks, num_groups * K), dtype=dtype, device=gid.device)
+    ptrs = [0 if kind == COUNT else chans[s].data_ptr() for kind, s in zip(kinds, sources)]
+    aligned = (gid.data_ptr() % 16 == 0 and live.data_ptr() % 4 == 0
+               and all(p % 16 == 0 for p in ptrs))
+    params = pack_params(gid.data_ptr(), live.data_ptr(),
+                         0 if count is None else count.data_ptr(), out.data_ptr(),
+                         0 if scratch is None else scratch.data_ptr(), ticket.data_ptr(), n,
+                         num_groups, kinds, ptrs, aligned)
+    rc = _lib().groupby_totals_launch(ctypes.byref(params), int(dtype == torch.float64), regime,
+                                      blocks, torch._C._cuda_getCurrentRawStream(idx))
     if rc != 0:
         raise RuntimeError(f"groupby_partials launch failed: cudaError {rc}")
     launches += 1
-    kind_t = torch.tensor(kinds, device=dev)
-    folded = torch.where(
-        kind_t == MIN, out.amin(0), torch.where(kind_t == MAX, out.amax(0), out.sum(0))
-    )
-    return folded
+    return out
 
 
 def groupby_totals(gid, live, count, channels, kinds, sources, num_groups):
     """(G, K) per-group totals of the channels (see groupby_totals_plain).
 
-    `channels` is a (D, n) int64 or float64 tensor (or None when every
-    channel is COUNT); kinds/sources are per output channel. CUDA tensors
+    `channels` is a sequence of contiguous length-n int64 or float64
+    vectors of one dtype, or a contiguous (D, n) tensor (its rows), or None
+    when every channel is COUNT; kinds/sources are per output channel;
+    `count` is a device int32 scalar or None for all n rows. CUDA tensors
     go through the kernel, CPU tensors through the plain version."""
     kinds, sources = list(kinds), list(sources)
-    _check_inputs(gid, live, count, channels, kinds, sources, num_groups)
+    chans = _channel_list(channels)
+    _check_inputs(gid, live, count, chans, kinds, sources, num_groups)
     if gid.device.type == "cuda":
         if gid.shape[0] == 0:  # nothing to launch over: every total is its identity
-            dtype = torch.int64 if channels is None else channels.dtype
-            ident = [
-                min_identity(dtype) if k == MIN else max_identity(dtype) if k == MAX else 0
-                for k in kinds
-            ]
-            return torch.tensor(ident, dtype=dtype, device=gid.device).expand(num_groups, -1)
-        return _launch(gid, live, count, channels, kinds, sources, num_groups)
+            dtype = chans[0].dtype if chans else torch.int64
+            ident = [min_identity(dtype) if k == MIN else max_identity(dtype) if k == MAX else 0
+                     for k in kinds]
+            return torch.stack([torch.full((num_groups,), v, dtype=dtype, device=gid.device)
+                                for v in ident], dim=1)
+        return _launch(gid, live, count, chans, kinds, sources, num_groups)
     if gid.device.type != "cpu":
         raise ValueError(f"no groupby kernel for device {gid.device}")
-    return groupby_totals_plain(gid, live, count, channels, kinds, sources, num_groups)
+    return groupby_totals_plain(gid, live, count, chans, kinds, sources, num_groups)
 
 
 # ---------------------------------------------------------------------------
@@ -229,12 +350,6 @@ class _Channels:
         self._seen[(key, kind)] = len(self.kinds) - 1
         return len(self.kinds) - 1
 
-    def stacked(self, dtype):
-        """The (D, n) channel tensor the kernel reads, or None."""
-        if not self.data:
-            return None
-        return torch.stack(self.data).to(dtype).contiguous()
-
 
 @dataclasses.dataclass
 class ChannelPlan:
@@ -248,13 +363,11 @@ class ChannelPlan:
 
     def calls(self, gid, live, count, num_groups):
         """[(gid, live, count, channels, kinds, sources, G)]: the
-        groupby_totals calls of this plan (int64 set, then float64 set)."""
-        out = []
-        for chans, dtype in ((self.ints, torch.int64), (self.floats, torch.float64)):
-            if chans.kinds:
-                out.append((gid, live, count, chans.stacked(dtype), chans.kinds,
-                            chans.sources, num_groups))
-        return out
+        groupby_totals calls of this plan (int64 set, then float64 set),
+        each channel set a list of the plan's vectors (no stacked copy)."""
+        return [(gid, live, count, [c.contiguous() for c in chans.data], chans.kinds,
+                 chans.sources, num_groups)
+                for chans in (self.ints, self.floats) if chans.kinds]
 
 
 def channel_plan(aggs: Sequence[AggSpec], ins) -> Optional[ChannelPlan]:
@@ -564,8 +677,7 @@ def _host_accumulate(gid, live, aggs, ins, G) -> Optional[List[Block]]:
     cp = channel_plan(aggs, ins)
     if cp is None:
         return None
-    count = torch.tensor(gid.shape[0], dtype=torch.int32, device=gid.device)
-    return _agg_blocks(aggs, cp, *_run_calls(cp.calls(gid, live, count, G),
+    return _agg_blocks(aggs, cp, *_run_calls(cp.calls(gid, live, None, G),
                                              groupby_totals_plain))
 
 
@@ -578,8 +690,7 @@ def _kernel_accumulate(gid, live, aggs, ins, G) -> Optional[List[Block]]:
     cp = channel_plan(aggs, ins)
     if cp is None:
         return None
-    count = torch.tensor(gid.shape[0], dtype=torch.int32, device=gid.device)
-    return _agg_blocks(aggs, cp, *_run_calls(cp.calls(gid, live, count, G)))
+    return _agg_blocks(aggs, cp, *_run_calls(cp.calls(gid, live, None, G)))
 
 
 def maybe_grouped_aggregate_hash(

@@ -1,6 +1,8 @@
 """presto_tpu_torch on an NVIDIA card: the groupby, join-insert,
-join-probe and fused-Q1 kernels against their plain versions, and TPC-H
-queries and the hand-coded pipelines on "cuda" against the same on "cpu".
+join-probe and fused-Q1 kernels against their plain versions (the groupby
+kernel also at the edges of its regimes and grid, chip_smoke.py's
+GROUPBY_EDGES, and as one launch per call), and TPC-H queries and the
+hand-coded pipelines on "cuda" against the same on "cpu".
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from presto_tpu_torch.benchmark import handcoded
 from presto_tpu_torch.benchmark.tpch_sql import QUERIES
 from presto_tpu_torch.connectors.tpch import TpchCatalog
@@ -55,6 +58,36 @@ def test_kernel_matches_plain(cuda, dtype):
     else:  # shared-memory atomics add in no fixed order
         mag = gk.groupby_totals_plain(gid, live, count, chans.abs(), kinds, sources, G)
         assert bool(((got - want).abs() <= 1e-12 * mag + 1e-9).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.GROUPBY_EDGES)
+def test_kernel_regime_edges_match_plain(cuda, name):
+    call, tol, expect = chip_smoke.groupby_edge_cases(cuda, n_big=200_000)[name]
+    regime, blocks = gk.launch_shape(cuda, call[3][0].dtype, call[0].shape[0], call[6],
+                                     len(call[4]))
+    if expect and "register" in expect:
+        assert (regime != gk.ATOMIC) == expect["register"]
+    if expect and "blocks" in expect:
+        assert blocks == expect["blocks"]
+    before = gk.launches
+    got = gk.groupby_totals(*call)
+    want = gk.groupby_totals_plain(*call)
+    torch.cuda.synchronize()
+    assert gk.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if tol is chip_smoke.exact:
+        assert torch.equal(got, want)
+    else:
+        assert bool(((got - want).abs() <= tol(call)).all())
+
+
+@pytest.mark.cuda
+def test_kernel_call_is_one_launch_without_copies(cuda):
+    """A warm call: one kernel on the device and no copy or stream sync."""
+    call, _, _ = chip_smoke.groupby_edge_cases(cuda, n_big=200_000)["count_below_n"]
+    res = chip_smoke.one_launch_check("count_below_n", call)
+    assert res["launches"] == 1 and res["memcpy"] == 0 and res["stream_syncs"] == 0
 
 
 def _insert_inputs(cuda, n, bits, skew):
