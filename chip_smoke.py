@@ -6,8 +6,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phase 1 builds every CUDA kernel of the package from csrc/ (nvcc, sm_90a),
 one nvcc per source, all started together, prints ptxas's registers and
-spills of every kernel instance, and checks the group-by kernel's
-parameter struct as the build lays it out against its ctypes twin.
+spills of every kernel instance, and checks the group-by and join
+kernels' parameter structs as the build lays them out against their
+ctypes twins.
 Phase 3 (run before phase 2) drives the main paths at SF 1, each with every
 kernel's launch count set to 0 just before it and read just after:
 through `Session(TpchCatalog(1.0), device="cuda").query(...)`, TPC-H Q1
@@ -30,10 +31,18 @@ Phase 2 holds each kernel against its plain PyTorch version on the card:
 the group-by kernel at Q1's, Q5's and Q18's (hash-slot) calls, two wider
 G 64 cases and the edges of its regimes and grid (GROUPBY_EDGES), and
 shows under torch.profiler that one groupby_totals call is one kernel
-launch with no host<->device copy or stream synchronise; join_insert and join_probe at the largest calls the join queries
-make (captured in one more run of them), at the top of the table path's
-range (4,194,304 build rows, 6,000,859 probe rows), with a skewed key and
-with a varchar key; the fused-Q1 kernel on the SF 1 page, on SF 10's
+launch with no host<->device copy or stream synchronise; join_insert and
+join_probe at the largest calls the join queries make (captured in one
+more run of them), at the top of the table path's range (4,194,304 build
+rows, 6,000,859 probe rows), with a skewed key whose rows overflow and
+whose scans pass other keys' tag matches, and with varchar (two
+dictionaries), composite, float64 (-0.0, NaN) and long-decimal keys, each
+join also against the CPU; inserts are held by the table invariants and
+by finding every row through the probe kernel, probes exactly (matched,
+build row); under torch.profiler a warm `_probe_n1` (at the largest
+captured probe and at 6M rows) is one launch with no copy or stream
+synchronise, and a warm `build_table` makes one insert launch, no
+`nonzero` and at most two host reads; the fused-Q1 kernel on the SF 1 page, on SF 10's
 60,000,000 rows generated on the card, with a count below capacity and a
 cutoff that empties groups, and on a case whose sum of charge passes 2^63
 (also held to exact Python-int totals). It times the kernel, the plain
@@ -80,6 +89,40 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+_MEMCPY_KEYS = ("cudaMemcpyAsync", "cudaMemcpy")
+
+
+def _count_events(events, pred):
+    return sum(e.count for e in events if pred(e))
+
+
+def _trace(fn, counter, tries=3):
+    """(key_averages, fn's result, the increase of counter()) of one call
+    of fn under torch.profiler, synchronised. The profiler at times drops
+    the last device records of a window (a kernel, a copy); a window with
+    fewer device kernels than cudaLaunchKernel calls, or fewer device
+    copies than cudaMemcpy calls, is incomplete and is traced again, at
+    most `tries` times in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(tries):
+        before = counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        copies = _count_events(events, lambda e: e.device_type == cuda and "Memcpy" in e.key)
+        kernels = _count_events(events, lambda e: e.device_type == cuda
+                                and "Memcpy" not in e.key and "Memset" not in e.key)
+        if (kernels >= _count_events(events, lambda e: e.key in _LAUNCH_KEYS)
+                and copies >= _count_events(events, lambda e: e.key in _MEMCPY_KEYS)):
+            break
+    return events, out, counter() - before
 
 
 # -- phase 2: kernel against plain version ---------------------------------
@@ -166,26 +209,20 @@ def one_launch_check(name, call):
     cudaStreamSynchronize. The one cudaDeviceSynchronize is the check's own,
     closing the window."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from presto_tpu_torch.ops import groupby_kernel as gk
 
     gk.groupby_totals(*call)
     torch.cuda.synchronize()
-    before = gk.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gk.groupby_totals(*call)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    events, _, launched = _trace(lambda: gk.groupby_totals(*call), lambda: gk.launches)
 
     def count(pred):
-        return sum(e.count for e in events if pred(e))
+        return _count_events(events, pred)
 
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     res = {
-        "case": name, "launches": gk.launches - before,
-        "cuda_launch_kernel": count(lambda e: e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                        "cudaLaunchKernelExC")),
+        "case": name, "launches": launched,
+        "cuda_launch_kernel": count(lambda e: e.key in _LAUNCH_KEYS),
         "device_events": {e.key[:60]: e.count for e in device},
         "memcpy": count(lambda e: "Memcpy" in e.key or e.key.startswith("cudaMemcpy")),
         "stream_syncs": count(lambda e: e.key == "cudaStreamSynchronize"),
@@ -699,140 +736,141 @@ def benchmark_path(sf=1.0, device="cuda", runs=3):
 
 def capture_calls(sess, queries=(3, 5, 17, 18)):
     """One more run of the join queries with the kernel wrappers wrapped:
-    the join_insert call with the most rows to insert and the join_probe
-    call with the most probe rows (with the query each came from), and
-    Q5's and Q18's groupby_totals calls."""
+    the join_insert call and the first-match probe (`_probe_n1`) with the
+    most live rows (with the query each came from), and Q5's and Q18's
+    groupby_totals calls."""
     from presto_tpu_torch.benchmark.tpch_sql import QUERIES
     from presto_tpu_torch.ops import groupby_kernel as gk
     from presto_tpu_torch.ops import join_kernel as jk
 
     rec = {"insert": None, "probe": None, "q5_totals": [], "q18_totals": []}
-    orig = jk.join_insert, jk.join_probe, gk.groupby_totals
+    orig = jk.join_insert, jk._probe_n1, gk.groupby_totals
     cur = [None]
 
-    def insert(tag, row, desired, bits):
-        live = int((row >= 0).sum())
-        if rec["insert"] is None or live > rec["insert"][2]:
-            rec["insert"] = (cur[0], (tag, row, desired, bits), live)
-        return orig[0](tag, row, desired, bits)
+    def insert(h, live, bits):
+        n_live = int(live.sum())
+        if rec["insert"] is None or n_live > rec["insert"][2]:
+            rec["insert"] = (cur[0], (h, live, bits), n_live)
+        return orig[0](h, live, bits)
 
-    def probe(slot_tag, slot_row, tag, desired, start, max_scan=jk.MAX_SCAN):
-        if rec["probe"] is None or tag.shape[0] > rec["probe"][1][2].shape[0]:
-            rec["probe"] = (cur[0], (slot_tag, slot_row, tag, desired, start))
-        return orig[1](slot_tag, slot_row, tag, desired, start, max_scan)
+    def probe_n1(jt, h, live, prep):
+        n_live = int(live.sum())
+        if rec["probe"] is None or n_live > rec["probe"][2]:
+            rec["probe"] = (cur[0], (jt, h, live, prep), n_live)
+        return orig[1](jt, h, live, prep)
 
     def totals(*call):
         if cur[0] in (5, 18):
             rec[f"q{cur[0]}_totals"].append(call)
         return orig[2](*call)
 
-    jk.join_insert, jk.join_probe, gk.groupby_totals = insert, probe, totals
+    jk.join_insert, jk._probe_n1, gk.groupby_totals = insert, probe_n1, totals
     try:
         for q in queries:
             cur[0] = q
             sess.query(QUERIES[q]).rows()
     finally:
-        jk.join_insert, jk.join_probe, gk.groupby_totals = orig
+        jk.join_insert, jk._probe_n1, gk.groupby_totals = orig
     return rec
 
 
 def _random_bytes(accesses, array_bytes):
-    """Least bytes of `accesses` random 4 B reads or writes into one array:
-    a 32 B sector each, but never more than the whole array."""
+    """Least bytes of `accesses` random reads or writes of at most 32 B
+    into one array: a 32 B sector each, but never more than the array."""
     return min(32 * accesses, array_bytes)
 
 
-def insert_bytes(row, bits):
-    """Least bytes of one insert: tag, row and desired read and pending
-    written once (16 B a row), both slot arrays set once by the memset
-    (8 B a slot), then for each slot array one random 32 B sector per
-    inserted row, capped at the array's bytes."""
+def insert_bytes(live, bits, overflow):
+    """Least bytes of one insert: each row's 1 B live flag and each live
+    row's 8 B hash read once, the table and its counter set once by the
+    memset (8 B a word), one random 32 B sector per inserted row (capped at
+    the table's bytes) and 8 B per overflow pair written."""
     from presto_tpu_torch.ops import join_kernel as jk
 
     size = jk.table_size(bits)
-    live = int((row >= 0).sum())
-    return 16 * row.shape[0] + 8 * size + 2 * _random_bytes(live, 4 * size)
+    n_live = int(live.sum())
+    return (live.shape[0] + 8 * n_live + 8 * (size + 1)
+            + _random_bytes(n_live, 8 * size) + 8 * overflow)
 
 
-def probe_bytes(tag, pos, slots):
-    """Least bytes of one probe launch: tag, desired and start read and
-    pos, row and more written once (24 B a row), one random 32 B sector of
-    slot tags per row and one of slot rows per tag match, each capped at
-    its slot array's bytes (4 B a slot)."""
-    return (24 * tag.shape[0] + _random_bytes(tag.shape[0], 4 * slots)
-            + _random_bytes(int((pos >= 0).sum()), 4 * slots))
+def probe_bytes(h, live, slots, prep, matched):
+    """Least bytes of one probe: each row's 1 B live flag read and 5 B of
+    results written, each live row's 8 B hash and 1 B per nullable probe
+    key read, once; one random 32 B slot sector per live row (capped at
+    the table's bytes); per matched row, its probe key values and one
+    random sector of each build key column and build validity mask (each
+    capped at its bytes)."""
+    m, n_live = h.shape[0], int(live.sum())
+    nbytes = 6 * m + 8 * n_live + _random_bytes(n_live, 8 * slots.shape[0])
+    k = int(matched.sum())
+    for pd_, bd_, pvld, bvld in prep:
+        nbytes += (n_live if pvld is not None else 0) + k * pd_[:1].numel() * pd_.element_size()
+        nbytes += _random_bytes(k, bd_.numel() * bd_.element_size())
+        if bvld is not None:
+            nbytes += _random_bytes(k, bvld.numel())
+    return nbytes
 
 
-def find_every_row(slot_tag, slot_row, pending, tag, row, desired):
-    """Probe the table with every inserted row's own tag through the probe
-    kernel, relaunching past tag matches of other rows and after scans that
-    need more, until each row finds itself or is lost; pending rows are
-    looked up in the tag-sorted overflow region. Returns (probe rounds,
-    found: bool per row, True where row < 0)."""
+def passed_other_matches(slots, h, live, bits, got):
+    """Rows whose scan met a tag match of another key before its own
+    verified match (or its vacant slot): a probe with no keys stops at the
+    first tag match, so those are the rows where it stopped elsewhere."""
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    first, frow = jk.join_probe(slots, h, live, bits, [])
+    return int((first & (~got[0] | (frow != got[1]))).sum())
+
+
+def find_every_row(slots, overflow, last, h, live, bits):
+    """Every inserted row looked up through the probe kernel by its own
+    hash, with its row number as its key, so a row matches only its own
+    slot. Returns (found: bool per row, True where the row was matched in
+    the slot region or is an overflow pair and not both, and where
+    live is false; rows whose scan passed another row's slot of their
+    tag)."""
     import torch
 
     from presto_tpu_torch.ops import join_kernel as jk
 
-    found = row < 0
-    placed = torch.nonzero((row >= 0) & (pending == 0)).flatten()
-    start = torch.zeros_like(tag)
-    rounds = 0
-    while placed.numel():
-        pos, got, more = jk.join_probe(slot_tag, slot_row, tag[placed], desired[placed],
-                                       start[placed])
-        mine = got == row[placed]
-        found[placed[mine]] = True
-        lost = (pos < 0) & (more == 0)
-        other = (pos >= 0) & ~mine
-        start[placed] = torch.where(other, pos - desired[placed] + 1,
-                                    torch.where(more.bool(), start[placed] + jk.MAX_SCAN,
-                                                start[placed]))
-        placed = placed[~mine & ~lost]
-        rounds += 1
-        if rounds > slot_tag.shape[0]:
-            raise AssertionError("probe rounds do not end")
-    left = torch.nonzero(pending).flatten()
-    of_tag, order = torch.sort(tag[left], stable=True)
-    of_row = row[left][order]
-    lo = torch.searchsorted(of_tag, tag[left])
-    hi = torch.searchsorted(of_tag, tag[left], right=True)
-    ok = torch.zeros(left.numel(), dtype=torch.bool, device=tag.device)
-    for k in range(int((hi - lo).max()) if left.numel() else 0):
-        p = torch.clamp(lo + k, max=max(of_row.numel() - 1, 0))
-        ok |= (lo + k < hi) & (of_row[p] == row[left])
-    found[left] = ok
-    return rounds, found
+    n = h.shape[0]
+    ids = torch.arange(n, dtype=torch.int32, device=h.device)
+    got = jk.join_probe(slots, h, live, bits, [(ids, ids, None, None)])
+    over = torch.zeros(n, dtype=torch.bool, device=h.device)
+    over[overflow[:int(last) + 1, 1].to(torch.int64)] = True
+    found = ~live | (got[0] != over)
+    return found, passed_other_matches(slots, h, live, bits, got)
 
 
-def insert_case(name, tag, row, desired, bits):
+def insert_case(name, h, live, bits):
     """join_insert (kernel) against join_insert_plain. Slot placement may
     differ between two correct inserts, so the two are compared by what a
     join sees: both held to the table invariants, and every inserted row
-    looked up by its own tag through the probe kernel in each table.
+    looked up by its own hash through the probe kernel in each table.
     max_abs_err is the largest |found(kernel) - found(plain)| over the rows
-    (found = 1 when the row's tag leads to it); times."""
+    (found = 1 when the row's hash leads to it); times."""
     import torch
 
     from presto_tpu_torch.ops import join_kernel as jk
 
-    got = jk.join_insert(tag, row, desired, bits)
-    plain = jk.join_insert_plain(tag, row, desired, bits)
+    got = jk.join_insert(h, live, bits)
+    plain = jk.join_insert_plain(h, live, bits)
     torch.cuda.synchronize()
-    errs = {label: jk.insert_invariant_errors(tag, row, desired, bits, *out)
+    errs = {label: jk.insert_invariant_errors(h, live, bits, *out)
             for label, out in (("kernel", got), ("plain", plain))}
-    rounds, found = find_every_row(*got, tag, row, desired)
-    _, found_plain = find_every_row(*plain, tag, row, desired)
+    found, passed = find_every_row(*got, h, live, bits)
+    found_plain, _ = find_every_row(*plain, h, live, bits)
     not_found = int((~found).sum()) + int((~found_plain).sum())
     max_err = int((found.to(torch.int32) - found_plain.to(torch.int32)).abs().max())
     if errs["kernel"] or errs["plain"] or not_found or max_err:
-        raise AssertionError(f"{name}: invariants {errs}, rows not found by their tag "
+        raise AssertionError(f"{name}: invariants {errs}, rows not found by their hash "
                              f"{not_found}, found(kernel) vs found(plain) max err {max_err}")
-    ms = cuda_ms(lambda: jk.join_insert(tag, row, desired, bits))
-    plain_ms = cuda_ms(lambda: jk.join_insert_plain(tag, row, desired, bits), iters=3, warmup=1)
-    nbytes = insert_bytes(row, bits)
-    res = {"case": name, "n": tag.shape[0], "bits": bits, "live": int((row >= 0).sum()),
-           "pending": int(got[2].sum()), "plain_pending": int(plain[2].sum()),
-           "find_rounds": rounds,
+    ms = cuda_ms(lambda: jk.join_insert(h, live, bits))
+    plain_ms = cuda_ms(lambda: jk.join_insert_plain(h, live, bits), iters=3, warmup=1)
+    overflow = int(got[2]) + 1
+    nbytes = insert_bytes(live, bits, overflow)
+    res = {"case": name, "n": h.shape[0], "bits": bits, "live": int(live.sum()),
+           "overflow": overflow, "plain_overflow": int(plain[2]) + 1,
+           "scans_past_other_rows": passed,
            "invariant_violations": len(errs["kernel"]) + len(errs["plain"]),
            "rows_not_found": not_found, "max_abs_err": float(max_err), "ms": ms,
            "plain_ms": plain_ms, "library_ms": None,
@@ -841,127 +879,183 @@ def insert_case(name, tag, row, desired, bits):
     return res, got
 
 
-def probe_case(name, slot_tag, slot_row, tag, desired, start):
-    """join_probe (kernel) against join_probe_plain on one table: exact."""
+def probe_case(name, slots, h, live, bits, prep):
+    """join_probe (kernel) against join_probe_plain on one table: matched
+    and the build row exactly equal (the first verified match in slot
+    order is one row whatever the build keys)."""
     import torch
 
     from presto_tpu_torch.ops import join_kernel as jk
 
-    got = jk.join_probe(slot_tag, slot_row, tag, desired, start)
-    want = jk.join_probe_plain(slot_tag, slot_row, tag, desired, start)
+    got = jk.join_probe(slots, h, live, bits, prep)
+    want = jk.join_probe_plain(slots, h, live, bits, prep)
     torch.cuda.synchronize()
     err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
               for a, b in zip(got, want))
-    if err:
+    if err or not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError(f"{name}: probe kernel disagrees with its plain version")
-    ms = cuda_ms(lambda: jk.join_probe(slot_tag, slot_row, tag, desired, start))
-    plain_ms = cuda_ms(lambda: jk.join_probe_plain(slot_tag, slot_row, tag, desired, start),
-                       iters=5)
-    nbytes = probe_bytes(tag, got[0], slot_tag.shape[0])
-    res = {"case": name, "m": tag.shape[0], "table_slots": slot_tag.shape[0],
-           "matched": int((got[0] >= 0).sum()), "more": int(got[2].sum()),
+    ms = cuda_ms(lambda: jk.join_probe(slots, h, live, bits, prep))
+    plain_ms = cuda_ms(lambda: jk.join_probe_plain(slots, h, live, bits, prep), iters=5)
+    nbytes = probe_bytes(h, live, slots, prep, got[0])
+    res = {"case": name, "m": h.shape[0], "table_slots": slots.shape[0], "keys": len(prep),
+           "key_dtypes": [str(k[1].dtype) + ("x2" if k[1].ndim == 2 else "") for k in prep],
+           "matched": int(got[0].sum()),
+           "scans_past_other_keys": passed_other_matches(slots, h, live, bits, got),
            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
     print("phase2", json.dumps(res), flush=True)
     return res
 
 
-def _tags(keys_h, bits):
+def probe_launch_check(name, jt, h, live, prep):
+    """One warm `_probe_n1` on a table with no overflow region under
+    torch.profiler: one kernel launch (the count +1, one cudaLaunchKernel,
+    one device kernel), no memcpy and no cudaStreamSynchronize."""
+    import torch
+
     from presto_tpu_torch.ops import join_kernel as jk
 
-    return jk._tag_desired(keys_h, bits)
+    if jt.of_tag.numel():
+        raise AssertionError(f"{name}: the table has an overflow region")
+    jk._probe_n1(jt, h, live, prep)
+    torch.cuda.synchronize()
+    events, _, launched = _trace(lambda: jk._probe_n1(jt, h, live, prep),
+                                 lambda: jk.probe_launches)
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    res = {"case": name, "launches": launched,
+           "cuda_launch_kernel": _count_events(events, lambda e: e.key in _LAUNCH_KEYS),
+           "device_events": {e.key[:60]: e.count for e in device},
+           "memcpy": _count_events(events, lambda e: "Memcpy" in e.key
+                                   or e.key.startswith("cudaMemcpy")),
+           "stream_syncs": _count_events(events, lambda e: e.key == "cudaStreamSynchronize")}
+    print("phase2 probe_one_launch", json.dumps(res), flush=True)
+    ours = sum(c for k, c in res["device_events"].items() if "join_probe" in k)
+    if (res["launches"] != 1 or res["cuda_launch_kernel"] != 1 or ours != 1
+            or sum(res["device_events"].values()) != 1 or res["memcpy"] or res["stream_syncs"]):
+        raise AssertionError(f"{name}: _probe_n1 is not one launch without copies or syncs: "
+                             f"{res}")
+    return res
+
+
+def build_check(name, page, key_exprs):
+    """One warm `build_table` under torch.profiler: one join_insert launch,
+    no `nonzero`, and at most two device-to-host reads (the live count that
+    sizes the table, the overflow count)."""
+    import torch
+
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    jk.build_table(page, key_exprs)
+    torch.cuda.synchronize()
+    events, jt, launched = _trace(lambda: jk.build_table(page, key_exprs),
+                                  lambda: jk.insert_launches)
+    res = {"case": name, "launches": launched,
+           "overflow": jt.of_tag.numel(),
+           "nonzero": _count_events(events, lambda e: e.key == "aten::nonzero"),
+           "dtoh": _count_events(events, lambda e: e.device_type == torch.autograd.DeviceType.CUDA
+                                 and "DtoH" in e.key),
+           "device_launches": _count_events(
+               events, lambda e: e.device_type == torch.autograd.DeviceType.CUDA)}
+    print("phase2 build_check", json.dumps(res), flush=True)
+    if res["launches"] != 1 or res["nonzero"] or res["dtoh"] > 2:
+        raise AssertionError(f"{name}: build_table is not one insert launch with at most two "
+                             f"host reads and no nonzero: {res}")
+    return res
+
+
+def _page(cols, device):
+    """A Page on `device` from {name: (numpy data, sql type, valid or None,
+    dictionary or None)}."""
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.page import Block, Page
+
+    return Page.from_blocks([Block.from_numpy(d, T.parse_type(t), valid=v, dictionary=dic,
+                                              device=device)
+                             for d, t, v, dic in cols.values()], list(cols))
+
+
+def join_case(name, bcols, pcols, keys, dev, inserts, probes, cpu_check=True, unique=True,
+              probe_name=None):
+    """One table join from numpy columns: join_insert against its plain
+    version on the build keys, join_probe against its plain version on the
+    probe keys (on the table build_table makes), and, with cpu_check,
+    table_join_n1 on the card equal to the CPU: inner and semi where the
+    build keys are unique (an n1 inner join takes THE match), else semi
+    and anti. Returns (table, probe hashes, probe live mask, prepared
+    keys)."""
+    import torch
+
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.expr.ir import col
+    from presto_tpu_torch.ops import join_kernel as jk
+    from presto_tpu_torch.ops.hashing import hash_rows_values
+
+    key_exprs = tuple(col(n, T.parse_type(t)) for n, t in keys)
+    build, probe = _page(bcols, dev), _page(pcols, dev)
+    bvals = [jk.evaluate(e, build) for e in key_exprs]
+    live = build.live_mask()
+    for v in bvals:
+        if v.valid is not None:
+            live = live & v.valid
+    res, _ = insert_case(name, hash_rows_values(bvals), live, jk._pick_bits(int(build.count)))
+    inserts.append(res)
+    jt = jk.build_table(build, key_exprs)
+    h, prep = jk._probe_setup(probe, jt, key_exprs)
+    plive = probe.live_mask()
+    probes.append(probe_case(probe_name or f"probe_{name}", jt.slots, h, plive, jt.bits, prep))
+    if cpu_check:
+        cpu = torch.device("cpu")
+        cb, cp = _page(bcols, cpu), _page(pcols, cpu)
+        cjt = jk.build_table(cb, key_exprs)
+        out = list(bcols)[-1]
+        kinds = ((("inner", (out,), (f"build_{out}",)), ("semi", (), ())) if unique
+                 else (("semi", (), ()), ("anti", (), ())))
+        for kind, names, outs in kinds:
+            got = jk.table_join_n1(probe, jt, key_exprs, names, outs, kind)
+            want = jk.table_join_n1(cp, cjt, key_exprs, names, outs, kind)
+            rows = sorted(map(repr, want.to_pylist()))
+            if sorted(map(repr, got.to_pylist())) != rows or not rows:
+                raise AssertionError(f"{name}: {kind} table join on the card differs from the "
+                                     f"CPU (or is empty)")
+        print(f"phase2 {name} join rows={int(got.count)} equal to the CPU", flush=True)
+    return jt, h, plive, prep
+
+
+def colliding_keys(n_pairs, dev):
+    """int64 key pairs (a, b), a != b, whose 32-bit tags are equal: from the
+    hashes of 2^21 candidate keys (about 500 colliding pairs by the birthday
+    bound), at most n_pairs of them."""
+    import torch
+
+    from presto_tpu_torch.ops import join_kernel as jk
+    from presto_tpu_torch.ops.hashing import hash_column
+
+    cand = torch.arange(1 << 21, dtype=torch.int64, device=dev) * 7919 + 1_000_003
+    tag, _ = jk._tag_desired(hash_column(cand), jk._MAX_BITS)
+    order = torch.argsort(tag)
+    st = tag[order]
+    at = torch.nonzero(st[1:] == st[:-1]).flatten()[:n_pairs]
+    return cand[order[at]], cand[order[at + 1]]
 
 
 def join_phase2(sess, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
     """The join kernels against their plain versions: the largest calls
     the four queries make, the top of the table path's range (a build of
     n_max rows, TABLE_MAX_BUILD by default, probed by m_max rows), a skewed
-    key and a varchar key (n_small rows each). Returns (insert results,
-    probe results, group-by results at Q18's hash-slot call and Q5's dense
-    call)."""
+    key with colliding tags, varchar keys in two dictionaries, a composite
+    key, a float64 key with -0.0 and NaN and a long-decimal key (n_small
+    build rows each), and the host work of `_probe_n1` and `build_table`.
+    Returns (insert results, probe results, launch checks, group-by results
+    at Q18's hash-slot call and Q5's dense call)."""
     import numpy as np
     import torch
 
-    from presto_tpu_torch import types as T
-    from presto_tpu_torch.expr.ir import col
     from presto_tpu_torch.ops import join_kernel as jk
-    from presto_tpu_torch.ops.hashing import hash_column, hash_rows_values
-    from presto_tpu_torch.page import Block, Page
 
     dev = torch.device(dev)
     rec = capture_calls(sess)
-    q_ins, (tag, row, desired, bits), _live = rec["insert"]
-    q_pr, pcall = rec["probe"]
-    print(f"phase2 largest build: Q{q_ins} n={tag.shape[0]} bits={bits}; largest n1 probe: "
-          f"Q{q_pr} m={pcall[2].shape[0]} table slots={pcall[0].shape[0]}", flush=True)
-    inserts = [insert_case(f"largest_build_q{q_ins}", tag, row, desired, bits)[0]]
-    probes = [probe_case(f"largest_probe_q{q_pr}", *pcall)]
-
-    # the top of the table path: TABLE_MAX_BUILD distinct keys (bits 23),
-    # probed by 6,000,859 rows of which about half match
-    rng = np.random.default_rng(11)
-    n = n_max or jk.TABLE_MAX_BUILD
-    keys = torch.from_numpy(rng.permutation(n).astype(np.int64) * 7 + 3).to(dev)
-    bits = jk._pick_bits(n)
-    tag, desired = _tags(hash_column(keys), bits)
-    row = torch.arange(n, dtype=torch.int32, device=dev)
-    res, (st, sr, _pend) = insert_case("max_build_4M", tag, row, desired, bits)
-    inserts.append(res)
-    m = m_max
-    pick = torch.from_numpy(rng.integers(0, n, m)).to(dev)
-    miss = torch.from_numpy(rng.random(m) < 0.5).to(dev)
-    pkeys = torch.where(miss, keys[pick] + (1 << 40), keys[pick])
-    ptag, pdes = _tags(hash_column(pkeys), bits)
-    probes.append(probe_case("probe_6M_half_match", st, sr, ptag, pdes,
-                             torch.zeros_like(ptag)))
-    del st, sr
-
-    # skew: one key repeated 1,000 times among 100,000 rows, so rows
-    # overflow and probes continue past other rows' matches
-    n = n_small
-    keys = torch.from_numpy(np.where(rng.random(n) < 0.01, 7, rng.permutation(n) + 100)).to(dev)
-    bits = jk._pick_bits(n)
-    tag, desired = _tags(hash_column(keys), bits)
-    row = torch.arange(n, dtype=torch.int32, device=dev)
-    res, (st, sr, pend) = insert_case("skew_key_x1000", tag, row, desired, bits)
-    inserts.append(res)
-    if res["pending"] == 0 or res["find_rounds"] < 2:
-        raise AssertionError("the skew case neither overflowed nor continued a probe")
-    starts = torch.from_numpy(rng.integers(0, jk.R_MAX, n).astype(np.int32)).to(dev)
-    probes.append(probe_case("probe_skew", st, sr, tag, desired, starts))
-
-    # varchar keys in two dictionaries: the table join on the card equals
-    # the same join on the CPU
-    bdict = tuple(f"key{i:07d}" for i in range(n_small))
-    pdict = tuple(sorted(f"key{i:07d}" for i in range(n_small // 2, 3 * n_small // 2)))
-    bcodes = rng.permutation(len(bdict)).astype(np.int32)
-    pcodes = rng.integers(0, len(pdict), 3 * n_small).astype(np.int32)
-    pages = {}
-    for d in (dev, torch.device("cpu")):
-        build = Page.from_blocks([Block.from_numpy(bcodes, T.VARCHAR, dictionary=bdict, device=d),
-                                  Block.from_numpy(np.arange(len(bdict)), T.BIGINT, device=d)],
-                                 ["k", "v"])
-        probe = Page.from_blocks([Block.from_numpy(pcodes, T.VARCHAR, dictionary=pdict, device=d),
-                                  Block.from_numpy(np.arange(len(pcodes)), T.BIGINT, device=d)],
-                                 ["k", "w"])
-        pages[d.type] = (build, probe)
-    key = (col("k", T.VARCHAR),)
-    build, probe = pages[dev.type]
-    kv = build.block("k")
-    bits = jk._pick_bits(build.capacity)
-    tag, desired = _tags(hash_rows_values([kv]), bits)
-    row = torch.arange(build.capacity, dtype=torch.int32, device=dev)
-    res, (st, sr, pend) = insert_case("varchar_key", tag, row, desired, bits)
-    inserts.append(res)
-    ptag, pdes = _tags(hash_rows_values([probe.block("k")]), bits)
-    probes.append(probe_case("probe_varchar", st, sr, ptag, pdes, torch.zeros_like(ptag)))
-    got = jk.table_join_n1(probe, jk.build_table(build, key), key, ("v",), ("v",))
-    cb, cp = pages["cpu"]
-    want = jk.table_join_n1(cp, jk.build_table(cb, key), key, ("v",), ("v",))
-    if sorted(got.to_pylist()) != sorted(want.to_pylist()) or int(want.count) == 0:
-        raise AssertionError("varchar table join on the card differs from the CPU")
-    print(f"phase2 varchar join rows={int(got.count)} equal to the CPU", flush=True)
-
+    q_ins, (h, live, bits), n_live = rec["insert"]
+    q_pr, (jt, ph, plive, prep), _ = rec["probe"]
     # the hash-slot group-by call of Q18's outer aggregate, and Q5's dense
     # call (revenue by nation, G 25)
     (call,) = rec["q18_totals"]
@@ -969,7 +1063,96 @@ def join_phase2(sess, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
                            one_launch=True)]
     (call,) = rec["q5_totals"]
     groupby.append(kernel_case("q5_dense", call, exact, {"register": True}, one_launch=True))
-    return inserts, probes, groupby
+    print(f"phase2 largest build: Q{q_ins} n={h.shape[0]} live={n_live} bits={bits}; largest "
+          f"n1 probe: Q{q_pr} m={ph.shape[0]} live={int(plive.sum())} table slots="
+          f"{jt.slots.shape[0]}", flush=True)
+    inserts = [insert_case(f"largest_build_q{q_ins}", h, live, bits)[0]]
+    probes = [probe_case(f"largest_probe_q{q_pr}", jt.slots, ph, plive, jt.bits, prep)]
+    checks = [probe_launch_check(f"largest_probe_q{q_pr}", jt, ph, plive, prep)]
+    rng = np.random.default_rng(11)
+    nq = h.shape[0]
+    # build_table's host work, checked last (after every one-launch check)
+    builds = [(f"build_{nq}_rows", _page({"k": (rng.permutation(nq).astype(np.int64) * 7 + 3,
+                                                "bigint", None, None)}, dev),
+               (_key("k", "bigint"),))]
+
+    # the top of the table path: TABLE_MAX_BUILD distinct keys (bits 23),
+    # probed by 6,000,859 rows of which about half match
+    n, m = n_max or jk.TABLE_MAX_BUILD, m_max
+    keys = rng.permutation(n).astype(np.int64) * 7 + 3
+    pkeys = keys[rng.integers(0, n, m)] + np.where(rng.random(m) < 0.5, 1 << 40, 0)
+    big = join_case("max_build_4M", {"k": (keys, "bigint", None, None)},
+                    {"k": (pkeys, "bigint", None, None)}, [("k", "bigint")], dev, inserts,
+                    probes, cpu_check=False, probe_name="probe_6M_half_match")
+    checks.append(probe_launch_check("probe_6M_half_match", *big))
+    del big
+
+    # skew: one key repeated ~1,000 times among n_small rows (rows overflow,
+    # rows of that key scan past each other), and key pairs with equal
+    # tags (probes scan past the other key's slot)
+    a, b = (x.cpu().numpy() for x in colliding_keys(400, dev))
+    n = n_small
+    bk = np.where(rng.random(n) < 0.01, 7, rng.permutation(n) * 11 + 100)
+    bk[:2 * len(a)] = np.concatenate([a, b])
+    pk = np.concatenate([bk, rng.integers(0, 11 * n, n)])
+    skew = {"k": (bk, "bigint", None, None), "v": (np.arange(n), "bigint", None, None)}
+    join_case("skew_key_x1000", skew, {"k": (pk, "bigint", None, None)}, [("k", "bigint")], dev,
+              inserts, probes, unique=False)
+    if (inserts[-1]["overflow"] == 0 or inserts[-1]["scans_past_other_rows"] == 0
+            or probes[-1]["scans_past_other_keys"] == 0):
+        raise AssertionError("the skew case did not overflow, or no scan passed another "
+                             "row's or key's tag match")
+    builds.append(("build_skew_with_overflow", _page(skew, dev), (_key("k", "bigint"),)))
+
+    # varchar keys in two dictionaries
+    bdict = tuple(f"key{i:07d}" for i in range(n_small))
+    pdict = tuple(sorted(f"key{i:07d}" for i in range(n_small // 2, 3 * n_small // 2)))
+    join_case("varchar_key",
+              {"k": (rng.permutation(len(bdict)).astype(np.int32), "varchar", None, bdict),
+               "v": (np.arange(len(bdict)), "bigint", None, None)},
+              {"k": (rng.integers(0, len(pdict), 3 * n_small).astype(np.int32), "varchar",
+                     rng.random(3 * n_small) > 0.05, pdict)},
+              [("k", "varchar")], dev, inserts, probes)
+
+    # a composite key (bigint, integer with NULLs on both sides), unique
+    perm = rng.permutation(n_small)
+    ka, kb = perm // 4, (perm % 4).astype(np.int32)
+    m = 3 * n_small
+    join_case("composite_key",
+              {"a": (ka.astype(np.int64), "bigint", None, None),
+               "b": (kb, "integer", rng.random(n_small) > 0.05, None)},
+              {"a": (rng.integers(0, n_small // 3, m), "bigint", None, None),
+               "b": (rng.integers(0, 5, m).astype(np.int32), "integer", rng.random(m) > 0.05,
+                     None)},
+              [("a", "bigint"), ("b", "integer")], dev, inserts, probes)
+
+    # float64 keys with -0.0, NaN and infinities
+    fb = rng.permutation(n_small) * 0.25 - 99.875  # unique, none of them 0
+    fb[:4] = [-0.0, np.nan, np.inf, np.nan]
+    fp = fb[rng.integers(4, n_small, m)] + np.where(rng.random(m) < 0.5, 0.0, 0.0625)
+    fp[:6] = [0.0, -0.0, np.nan, np.inf, -np.inf, np.nan]
+    join_case("float64_key", {"k": (fb, "double", None, None)},
+              {"k": (fp, "double", None, None)}, [("k", "double")], dev, inserts, probes)
+
+    # long decimals: two int64 lanes; probes that share the low lane only
+    lanes = np.stack([rng.integers(-3, 3, n_small),
+                      rng.permutation(n_small).astype(np.int64) * 1_000_003], 1)
+    plan = lanes[rng.integers(0, n_small, m)].copy()
+    plan[::3, 0] += 1
+    join_case("long_decimal_key",
+              {"k": (lanes, "decimal(38,2)", rng.random(n_small) > 0.05, None)},
+              {"k": (plan, "decimal(38,2)", None, None)}, [("k", "decimal(38,2)")], dev,
+              inserts, probes)
+
+    checks += [build_check(*args) for args in builds]
+    return inserts, probes, checks, groupby
+
+
+def _key(name, typ):
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.expr.ir import col
+
+    return col(name, T.parse_type(typ))
 
 
 # -- phase 2: the fused-Q1 kernel against its plain version -----------------
@@ -1150,19 +1333,24 @@ def profile_runs(runs, warm_ms, out_dir):
 
 
 def check_params_layout():
-    """The group-by kernel's GroupbyParams as the card's build lays it out
-    (sizeof, then each field's offset) against the ctypes struct that packs
-    it."""
+    """The kernels' parameter structs as the card's build lays them out
+    (sizeof, then each field's offset): the group-by kernel's
+    GroupbyParams, the join kernels' InsertParams and ProbeParams (with
+    ProbeKey), each against the ctypes struct that packs it."""
     import ctypes
 
     from presto_tpu_torch.ops import groupby_kernel as gk
+    from presto_tpu_torch.ops import join_kernel as jk
 
     want = [ctypes.sizeof(gk.GroupbyParams)] + [
         getattr(gk.GroupbyParams, f).offset for f, _ in gk.GroupbyParams._fields_]
-    got = gk.params_layout()
-    print(f"phase1 GroupbyParams layout (size, offsets) {got}", flush=True)
-    if got != want:
-        raise AssertionError(f"GroupbyParams: C layout {got} != ctypes {want}")
+    layouts = {"GroupbyParams": (gk.params_layout(), want)}
+    for name in ("join_insert", "join_probe"):
+        layouts[name] = (jk.params_layout(name), jk.ctypes_layout(name))
+    for name, (got, want) in layouts.items():
+        print(f"phase1 {name} params layout (size, offsets) {got}", flush=True)
+        if got != want:
+            raise AssertionError(f"{name}: C layout {got} != ctypes {want}")
 
 
 def main() -> int:
@@ -1231,7 +1419,7 @@ def main() -> int:
     # shapes and at wider cases
     t0 = time.perf_counter()
     cases = phase2(q1_kernel_call(sess, cat))
-    inserts, probes, groupby = join_phase2(sess)
+    inserts, probes, launch_checks, groupby = join_phase2(sess)
     cases += groupby
     q1_cases = q1_phase2(q1_page)
     print(f"phase2 done in {time.perf_counter() - t0:.3f} s", flush=True)
@@ -1268,10 +1456,12 @@ def main() -> int:
               "presto_tpu/ops/pallas_join.py:193", inserts[0], inserts,
               "table invariants of both tables (violations "
               f"{sum(c['invariant_violations'] for c in inserts)}); max_abs_err is "
-              "|found(kernel) - found(plain)| of each row looked up by its own tag"),
+              "|found(kernel) - found(plain)| of each row looked up by its own hash"),
         entry("join_probe", "presto_tpu_torch/csrc/join_probe.cu",
               "presto_tpu/ops/pallas_join.py:452", probes[0], probes,
-              "pos, row and more against the plain version on the same table"),
+              "matched and build row (first verified match) against the plain version on "
+              f"the same table; _probe_n1 one launch, no copy or sync in "
+              f"{len([c for c in launch_checks if 'cuda_launch_kernel' in c])} checks"),
         entry("q1_partials", "presto_tpu_torch/csrc/q1_partials.cu",
               "presto_tpu/ops/pallas_agg.py:45", q1_cases[0], q1_cases,
               "every field of q1_sums against the plain version (integers: exact)"),

@@ -9,47 +9,60 @@ build / probe / multiway design):
 * BUILD: every live row with non-NULL keys claims a slot at its desired
   slot (the top `bits` bits of its 32-bit tag) or one of the R_MAX slots
   after it. Rows left over (heavy single-key skew) move to a tag-sorted
-  OVERFLOW region probed by binary search. A permanently EMPTY last slot
+  OVERFLOW region probed by binary search. A permanently vacant last slot
   ends every scan without wrap-around.
-* PROBE: per probe row, scan from the desired slot to the first EMPTY slot;
-  32-bit tag matches are verified by true key equality (dictionary-unified
-  for varchar), so tag collisions only cost a re-check. First-match (n1,
-  semi, anti, mark) and all-matches (1:N expand) variants.
+* PROBE: per probe row, scan from the desired slot to the first vacant
+  slot; 32-bit tag matches are verified by true key equality
+  (dictionary-unified for varchar), so tag collisions only cost a
+  re-check. First-match (n1, semi, anti, mark) and all-matches (1:N
+  expand) variants.
 * MULTIWAY: one pass over a fact batch resolves two or more dimension
   tables before any intermediate page is materialized.
 
-Tags are uint32 values held as int32 bit patterns (EMPTY = -1); real tags
-are clamped at 0xFFFFFFFE. `join_insert` and `join_probe` are the kernel
-wrappers: for CUDA tensors they launch csrc/join_insert.cu (replacing
-pallas_join.py::_pallas_insert_kernel) and csrc/join_probe.cu (replacing
-_pallas_probe_kernel); for CPU tensors they run `join_insert_plain` and
-`join_probe_plain`. There is no fault fallback: a kernel that fails to
-build or launch fails the query. Everything else (key preparation,
-verification, the probe loop, the overflow and all-matches scans and page
-emission) is device tensor code.
+A slot is one packed 8-byte word, (tag, row) as two int32: `slots` is a
+(2^bits + R_MAX + 1, 2) int32 tensor, vacant = (EMPTY_TAG, -1), and
+`slot_tag` / `slot_row` are its two columns as strided views. Tags are
+uint32 values held as int32 bit patterns (EMPTY = -1); real tags are
+clamped at 0xFFFFFFFE.
+
+`join_insert` and `join_probe` are the kernel wrappers: for CUDA tensors
+they launch csrc/join_insert.cu (replacing
+pallas_join.py::_pallas_insert_kernel; one launch per build, overflow
+rows appended on the card) and csrc/join_probe.cu (replacing
+_pallas_probe_kernel and the host key check around it: the first
+VERIFIED match of every probe row in one launch); for CPU tensors they
+run `join_insert_plain` and `join_probe_plain`. There is no fault
+fallback: a kernel that fails to build or launch fails the query.
+Everything else (key preparation, the overflow and all-matches scans and
+page emission) is device tensor code.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..expr.compiler import evaluate
-from ..expr.functions import Val
+from ..expr.functions import NotPortedError, Val
 from ..page import Block, Page
 from .hashing import _srl, hash_rows_values, value_hashable
 
 EMPTY_TAG = -1  # 0xFFFFFFFF as int32 bits: a vacant slot
 MAX_TAG = 0xFFFFFFFE  # real tags clamp below EMPTY
 R_MAX = 64  # insert attempts per row; leftovers go to the overflow region
-MAX_SCAN = 16  # probe-kernel scan length per launch
+MAX_KEYS = 8  # keys the probe kernel's parameters carry (csrc/join_probe.cu)
 TABLE_MAX_BUILD = 1 << 22  # larger builds keep the sorted-hash layout
 _MAX_BITS = 23
+_PLAIN_ROUND = 16  # slots join_probe_plain scans per round
 THREADS = 256
+
+# element kinds of a key column, as csrc/join_probe.cu's KeyKind names them
+KEY_KINDS = {torch.bool: 0, torch.int8: 0, torch.uint8: 0, torch.int16: 1, torch.int32: 2,
+             torch.int64: 3, torch.float32: 4, torch.float64: 5}
 
 # launches of the two CUDA kernels (one per wrapper call on CUDA tensors)
 insert_launches = 0
@@ -66,7 +79,7 @@ def _i32(tag_u: torch.Tensor) -> torch.Tensor:
 def _tag_desired(h: torch.Tensor, bits: int):
     """(int32 tag bits, int32 desired slot) from 64-bit row hashes: the tag
     keeps the TOP 32 hash bits, clamped below EMPTY, and the desired slot
-    is the tag's top `bits` bits."""
+    is the tag's top `bits` bits. The kernels derive both the same way."""
     t = torch.clamp(_srl(h, 32), max=MAX_TAG)
     return _i32(t), (t >> (32 - bits)).to(torch.int32)
 
@@ -82,12 +95,12 @@ def table_size(bits: int) -> int:
 
 @dataclasses.dataclass
 class JoinTable:
-    """Linear-probe hash table over one build page. The slot arrays have
-    2^bits + R_MAX + 1 entries; the last is permanently EMPTY. Overflow
-    rows sit sorted by (signed int32) tag in of_tag / of_row."""
+    """Linear-probe hash table over one build page. `slots` has
+    2^bits + R_MAX + 1 packed (tag, row) slots; the last is permanently
+    vacant. Overflow rows sit sorted by (signed int32) tag in of_tag /
+    of_row."""
 
-    slot_tag: torch.Tensor  # int32 tag bits; EMPTY_TAG = vacant
-    slot_row: torch.Tensor  # int32 build row; -1 = vacant
+    slots: torch.Tensor  # (size, 2) int32: tag bits, build row; (EMPTY_TAG, -1) = vacant
     bits: int
     of_tag: torch.Tensor  # int32, sorted ascending (may be empty)
     of_row: torch.Tensor  # int32
@@ -96,18 +109,28 @@ class JoinTable:
     key_exprs: tuple
     count: int  # live build rows
 
+    @property
+    def slot_tag(self) -> torch.Tensor:
+        return self.slots[:, 0]
+
+    @property
+    def slot_row(self) -> torch.Tensor:
+        return self.slots[:, 1]
+
     @staticmethod
     def from_numpy(slot_tag, slot_row, bits, of_tag, of_row, page, key_vals, key_exprs,
                    count, device) -> "JoinTable":
         """A table from numpy slot arrays (uint32 tags, as the JAX package
-        builds them) on `device`; the overflow region is re-sorted by the
-        signed order this package's searches use."""
+        builds them) on `device`, packed into slot words; the overflow
+        region is re-sorted by the signed order this package's searches
+        use."""
         dev = torch.device(device)
         of_t = np.asarray(of_tag, np.uint32).view(np.int32)
         order = np.argsort(of_t, kind="stable")
+        slots = np.stack([np.asarray(slot_tag, np.uint32).view(np.int32),
+                          np.asarray(slot_row, np.int32)], axis=1)
         return JoinTable(
-            torch.from_numpy(np.asarray(slot_tag, np.uint32).view(np.int32).copy()).to(dev),
-            torch.from_numpy(np.asarray(slot_row, np.int32).copy()).to(dev),
+            torch.from_numpy(slots).to(dev),
             int(bits),
             torch.from_numpy(of_t[order].copy()).to(dev),
             torch.from_numpy(np.asarray(of_row, np.int32)[order].copy()).to(dev),
@@ -116,24 +139,135 @@ class JoinTable:
 
 
 # ---------------------------------------------------------------------------
+# the CUDA libraries
+# ---------------------------------------------------------------------------
+
+
+class InsertParams(ctypes.Structure):
+    """csrc/join_insert.cu's InsertParams, field for field: passed by
+    pointer to the C entry, which copies it into the launch."""
+
+    _fields_ = [
+        ("hash", ctypes.c_void_p),
+        ("live", ctypes.c_void_p),
+        ("slots", ctypes.c_void_p),  # size + 1 words: the table, then the counter
+        ("overflow", ctypes.c_void_p),
+        ("n", ctypes.c_longlong),
+        ("size", ctypes.c_int),
+        ("bits", ctypes.c_int),
+    ]
+
+
+class ProbeKey(ctypes.Structure):
+    """csrc/join_probe.cu's ProbeKey: one key column pair."""
+
+    _fields_ = [
+        ("probe", ctypes.c_void_p),
+        ("build", ctypes.c_void_p),
+        ("probe_valid", ctypes.c_void_p),  # None: no NULLs
+        ("build_valid", ctypes.c_void_p),
+        ("kind", ctypes.c_int),
+        ("lanes", ctypes.c_int),
+    ]
+
+
+class ProbeParams(ctypes.Structure):
+    """csrc/join_probe.cu's ProbeParams, field for field."""
+
+    _fields_ = [
+        ("slots", ctypes.c_void_p),
+        ("hash", ctypes.c_void_p),
+        ("live", ctypes.c_void_p),
+        ("matched", ctypes.c_void_p),
+        ("brow", ctypes.c_void_p),
+        ("m", ctypes.c_longlong),
+        ("size", ctypes.c_int),
+        ("bits", ctypes.c_int),
+        ("num_keys", ctypes.c_int),
+        ("key", ProbeKey * MAX_KEYS),
+    ]
+
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_PARAMS = {"join_insert": InsertParams, "join_probe": ProbeParams}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    """Kernel library `name` (join_insert | join_probe), built and bound
+    at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        from .. import cuda_build
+
+        lib = cuda_build.load(name)
+        launch = getattr(lib, f"{name}_launch")
+        launch.restype = ctypes.c_int
+        launch.argtypes = [ctypes.POINTER(_PARAMS[name]), ctypes.c_int, ctypes.c_void_p]
+        layout = getattr(lib, f"{name}_params_layout")
+        layout.restype = ctypes.c_int
+        layout.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        _LIBS[name] = lib
+    return lib
+
+
+def params_layout(name: str) -> List[int]:
+    """The parameter struct of kernel library `name` as the C side lays it
+    out (sizeof, then field offsets; for join_probe then ProbeKey's): the
+    card's build, to compare with `ctypes_layout(name)`."""
+    buf = (ctypes.c_longlong * 32)()
+    n = getattr(_lib(name), f"{name}_params_layout")(buf)
+    return list(buf[:n])
+
+
+def ctypes_layout(name: str) -> List[int]:
+    """The same figures for the ctypes twins."""
+    out = []
+    for struct in (_PARAMS[name],) + ((ProbeKey,) if name == "join_probe" else ()):
+        out += [ctypes.sizeof(struct)] + [getattr(struct, f).offset for f, _ in struct._fields_]
+    return out
+
+
+def _blocks(n: int) -> int:
+    return max(1, min(-(-n // THREADS), 1 << 20))
+
+
+def _stream(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(idx)
+
+
+def _check_rows(h, live):
+    if h.dtype != torch.int64 or h.ndim != 1 or not h.is_contiguous():
+        raise ValueError("expected a contiguous int64 vector of row hashes")
+    if live.dtype != torch.bool or live.shape != h.shape or not live.is_contiguous():
+        raise ValueError("expected a contiguous bool live mask, one flag per hash")
+    if live.device != h.device:
+        raise ValueError("all inputs must be on one device")
+
+
+# ---------------------------------------------------------------------------
 # kernel 2: insert
 # ---------------------------------------------------------------------------
 
 
-def join_insert_plain(tag, row, desired, bits: int):
-    """(slot_tag, slot_row, pending) in plain torch: the JAX package's
-    round-parallel insert (`_host_insert`). Round k scatters each pending
-    row at desired + k (some writer wins each slot), a gather confirms the
-    winner, losers go on; rows unplaced after R_MAX rounds are pending."""
-    dev = tag.device
+def join_insert_plain(h, live, bits: int):
+    """(slots, overflow, last) in plain torch: the JAX package's
+    round-parallel insert (`_host_insert`) of every live row, row id = its
+    index. Round k scatters each pending row at desired + k (some writer
+    wins each slot), a gather confirms the winner, losers go on; rows
+    unplaced after R_MAX rounds fill overflow[:last + 1] as (tag, row)
+    pairs in row order."""
+    dev = h.device
+    tag, desired = _tag_desired(h, bits)
+    n = h.shape[0]
     size = table_size(bits)
-    limit = size - 2  # the last slot stays EMPTY
-    slot_tag = torch.full((size,), EMPTY_TAG, dtype=torch.int32, device=dev)
-    slot_row = torch.full((size,), -1, dtype=torch.int32, device=dev)
+    limit = size - 2  # the last slot stays vacant
+    slots = torch.full((size, 2), -1, dtype=torch.int32, device=dev)
+    slot_tag, slot_row = slots[:, 0], slots[:, 1]
+    row = torch.where(live, torch.arange(n, dtype=torch.int32, device=dev), -1)
     d = desired.to(torch.int64)
-    live = row >= 0
     cand0 = torch.clamp(d, max=limit)
-    slot_row[torch.where(live, cand0, size - 1)] = torch.where(live, row, -1)
+    slot_row[torch.where(live, cand0, size - 1)] = row
     slot_row[size - 1] = -1
     won0 = live & (slot_row[cand0] == row)
     slot_tag[cand0[won0]] = tag[won0]
@@ -152,117 +286,100 @@ def join_insert_plain(tag, row, desired, bits: int):
             placed = torch.zeros(pend.numel(), dtype=torch.bool, device=dev)
             placed[torch.nonzero(vacant).flatten()[won]] = True
             pend = pend[~placed]
-    pending = torch.zeros(tag.shape[0], dtype=torch.int32, device=dev)
-    pending[pend] = 1
-    return slot_tag, slot_row, pending
+    overflow = torch.full((n, 2), -1, dtype=torch.int32, device=dev)
+    overflow[:pend.numel()] = torch.stack([tag[pend], pend.to(torch.int32)], dim=1)
+    return slots, overflow, torch.tensor(pend.numel() - 1, dtype=torch.int32, device=dev)
 
 
-def _check_vectors(*ts):
-    n = ts[0].shape[0]
-    for t in ts:
-        if t.dtype != torch.int32 or t.ndim != 1 or t.shape[0] != n or not t.is_contiguous():
-            raise ValueError("expected contiguous int32 vectors of one length")
-        if t.device != ts[0].device:
-            raise ValueError("all inputs must be on one device")
-
-
-def _bind(name: str, argtypes):
-    from .. import cuda_build
-
-    fn = getattr(cuda_build.load(name), name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return fn
-
-
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-
-
-def _blocks(n: int) -> int:
-    return max(1, min(-(-n // THREADS), 1 << 20))
-
-
-def join_insert(tag, row, desired, bits: int):
-    """Build the slot arrays: (slot_tag, slot_row, pending), int32 each.
-    `tag` holds uint32 tag bits, `row` the build row id or -1 (not
-    inserted), `desired` the desired slot, < 2^bits. CUDA tensors go
-    through csrc/join_insert.cu, CPU tensors through join_insert_plain."""
+def join_insert(h, live, bits: int):
+    """Build the slot table of the rows with live[i]: (slots, overflow,
+    last). `h` holds the 64-bit row hashes; a row's id is its index.
+    `slots` is the (table_size(bits), 2) int32 table; rows that claimed no
+    slot of their R_MAX window are the (tag, row) pairs overflow[:last + 1]
+    (`last` a 0-d int32 tensor on the device, -1 when none; their order is
+    the race's). CUDA tensors go through csrc/join_insert.cu (one memset,
+    one launch, no host read), CPU tensors through join_insert_plain."""
     global insert_launches
-    _check_vectors(tag, row, desired)
+    _check_rows(h, live)
     if not 4 <= bits <= _MAX_BITS:
         raise ValueError(f"bits {bits} out of range")
-    dev = tag.device
+    dev = h.device
     if dev.type == "cpu":
-        return join_insert_plain(tag, row, desired, bits)
+        return join_insert_plain(h, live, bits)
     if dev.type != "cuda":
         raise ValueError(f"no join_insert kernel for device {dev}")
+    n = h.shape[0]
     size = table_size(bits)
-    n = tag.shape[0]
-    slot_tag = torch.empty(size, dtype=torch.int32, device=dev)
-    slot_row = torch.empty(size, dtype=torch.int32, device=dev)
-    pending = torch.empty(n, dtype=torch.int32, device=dev)
-    fn = _bind("join_insert", [_P, _P, _P, _LL, _I, _P, _P, _P, _I, _I, _P])
-    rc = fn(tag.data_ptr(), row.data_ptr(), desired.data_ptr(), n, size,
-            slot_tag.data_ptr(), slot_row.data_ptr(), pending.data_ptr(), _blocks(n),
-            THREADS, torch.cuda.current_stream(dev).cuda_stream)
+    table = torch.empty((size + 1, 2), dtype=torch.int32, device=dev)
+    overflow = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    p = InsertParams(h.data_ptr(), live.data_ptr(), table.data_ptr(), overflow.data_ptr(), n,
+                     size, bits)
+    rc = _lib("join_insert").join_insert_launch(ctypes.byref(p), _blocks(n), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"join_insert launch failed: cudaError {rc}")
     if n:
         insert_launches += 1
-    return slot_tag, slot_row, pending
+    return table[:size], overflow, table[size, 0]
 
 
-def insert_invariant_errors(tag, row, desired, bits: int, slot_tag, slot_row, pending):
+def insert_invariant_errors(h, live, bits: int, slots, overflow, last):
     """What is wrong with an insert's output, [] when nothing. Any correct
     insert (the kernel's or the plain version's, whatever the race order)
-    keeps these: placed and pending rows partition the rows with row >= 0;
+    keeps these: placed rows and overflow rows partition the live rows;
     every placed row sits once, at a slot in its R_MAX window
     [min(desired, limit), min(desired + R_MAX - 1, limit)] whose tag is its
-    own, with every slot from its window start up to it occupied; a pending
-    row found its whole window occupied; vacant slots (the last one
-    always) hold EMPTY."""
+    own, with every slot from its window start up to it occupied; an
+    overflow pair holds its row's tag, and its row found its whole window
+    occupied; vacant slots (the last one always) hold (EMPTY_TAG, -1)."""
     errs = []
-    dev = tag.device
+    dev = h.device
+    tag, desired = _tag_desired(h, bits)
+    n = h.shape[0]
     size = table_size(bits)
     limit = size - 2
-    live = row >= 0
-    pend = pending.bool()
-    if slot_tag.shape[0] != size or slot_row.shape[0] != size:
-        return [f"slot arrays are not {size} long"]
+    if tuple(slots.shape) != (size, 2):
+        return [f"the table is not ({size}, 2)"]
+    slot_tag, slot_row = slots[:, 0], slots[:, 1]
+    count = int(last) + 1
+    if not 0 <= count <= n:
+        return [f"overflow count {count} is outside [0, {n}]"]
+    of_rows = overflow[:count, 1].to(torch.int64)
+    if bool(((of_rows < 0) | (of_rows >= n)).any()):
+        return errs + ["an overflow pair names no row"]
+    pend = torch.zeros(n, dtype=torch.bool, device=dev)
+    pend[of_rows] = True
+    if int(pend.sum()) != count:
+        errs.append("a row overflowed twice")
     if bool((pend & ~live).any()):
-        errs.append("a row that was not to be inserted is pending")
+        errs.append("a row that was not to be inserted overflowed")
+    if bool((overflow[:count, 0] != tag[of_rows]).any()):
+        errs.append("an overflow pair's tag is not its row's tag")
     occ = slot_row >= 0
     if bool(occ[size - 1]) or int(slot_tag[size - 1]) != EMPTY_TAG:
-        errs.append("the last slot is not EMPTY")
+        errs.append("the last slot is not vacant")
     if bool(((slot_tag == EMPTY_TAG) == occ).any()):
         errs.append("a slot's tag disagrees with its occupancy")
-    # row id -> input index
-    at = torch.full((int(row.max()) + 2 if row.numel() else 1,), -1, dtype=torch.int64,
-                    device=dev)
-    idx = torch.nonzero(live).flatten()
-    at[row[idx].to(torch.int64)] = idx
-    slots = torch.nonzero(occ).flatten()
-    owners = at[slot_row[slots].to(torch.int64)]
-    if bool((owners < 0).any()):
+    slots_at = torch.nonzero(occ).flatten()
+    owners = slot_row[slots_at].to(torch.int64)
+    if bool((owners >= n).any()) or bool((~live[torch.clamp(owners, max=n - 1)]).any()):
         return errs + ["a slot holds a row that was not to be inserted"]
-    placed_count = torch.zeros(tag.shape[0], dtype=torch.int64, device=dev)
+    placed_count = torch.zeros(n, dtype=torch.int64, device=dev)
     placed_count.index_add_(0, owners, torch.ones_like(owners))
     if bool((placed_count[live] != (~pend[live]).to(torch.int64)).any()):
-        errs.append("placed and pending rows do not partition the live rows")
+        errs.append("placed and overflow rows do not partition the live rows")
     lo = torch.clamp(desired.to(torch.int64), max=limit)
     hi = torch.clamp(desired.to(torch.int64) + R_MAX - 1, max=limit)
     cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(occ.long(), 0)])
     o_lo = lo[owners]
-    if bool(((slots < o_lo) | (slots > hi[owners])).any()):
+    if bool(((slots_at < o_lo) | (slots_at > hi[owners])).any()):
         errs.append("a row sits outside its window")
-    if bool((slot_tag[slots] != tag[owners]).any()):
+    if bool((slot_tag[slots_at] != tag[owners]).any()):
         errs.append("a slot's tag is not its row's tag")
-    if bool((cum[slots + 1] - cum[o_lo] != slots - o_lo + 1).any()):
+    if bool((cum[slots_at + 1] - cum[o_lo] != slots_at - o_lo + 1).any()):
         errs.append("a vacant slot lies between a row's window start and its slot")
-    p = torch.nonzero(pend).flatten()
+    p = of_rows
     if bool((cum[hi[p] + 1] - cum[lo[p]] != hi[p] - lo[p] + 1).any()):
-        errs.append("a pending row had a vacant slot in its window")
+        errs.append("an overflow row had a vacant slot in its window")
     return errs
 
 
@@ -271,57 +388,114 @@ def insert_invariant_errors(tag, row, desired, bits: int, slot_tag, slot_row, pe
 # ---------------------------------------------------------------------------
 
 
-def join_probe_plain(slot_tag, slot_row, tag, desired, start, max_scan: int = MAX_SCAN):
-    """(pos, row, more) in plain torch: the JAX package's probe kernel
-    body. Per probe row, scan max_scan slots from desired + start: the
-    first tag-match position and its row (-1 when none), and more = 1 when
-    the scan neither matched nor met an EMPTY slot."""
-    limit = slot_tag.shape[0] - 1
-    base = desired.to(torch.int64) + start.to(torch.int64)
-    found = torch.zeros(tag.shape, dtype=torch.bool, device=tag.device)
-    ended = torch.zeros_like(found)
-    pos = torch.full(tag.shape, -1, dtype=torch.int32, device=tag.device)
-    row = torch.full_like(pos, -1)
-    for k in range(max_scan):
-        cand = torch.clamp(base + k, max=limit)
-        t = slot_tag[cand]
-        hit = ~found & ~ended & (t == tag)
-        pos = torch.where(hit, cand.to(torch.int32), pos)
-        row = torch.where(hit, slot_row[cand], row)
-        found = found | hit
-        ended = ended | (t == EMPTY_TAG)
-    return pos, row, (~found & ~ended).to(torch.int32)
+def _kernel_keys(prep):
+    """`prep` (see _prepare_keys) as the probe kernel reads it: each key's
+    probe and build data of one dtype with one lane count, contiguous.
+    Raises NotPortedError for what its parameters cannot carry."""
+    if len(prep) > MAX_KEYS:
+        raise NotPortedError(f"a join on {len(prep)} keys: the probe kernel takes at most "
+                             f"{MAX_KEYS}")
+    out = []
+    for pd_, bd_, pvld, bvld in prep:
+        if pd_.dtype != bd_.dtype:
+            common = torch.promote_types(pd_.dtype, bd_.dtype)
+            pd_, bd_ = pd_.to(common), bd_.to(common)
+        if pd_.dtype not in KEY_KINDS or pd_.ndim not in (1, 2) or pd_.shape[1:] != bd_.shape[1:]:
+            raise NotPortedError(f"a join key of {pd_.dtype} {tuple(pd_.shape[1:])} / "
+                                 f"{tuple(bd_.shape[1:])} lanes")
+        for v in (pvld, bvld):
+            if v is not None and v.dtype != torch.bool:
+                raise ValueError("key validity masks must be bool")
+        out.append((pd_.contiguous(), bd_.contiguous(),
+                    None if pvld is None else pvld.contiguous(),
+                    None if bvld is None else bvld.contiguous()))
+    return out
 
 
-def join_probe(slot_tag, slot_row, tag, desired, start, max_scan: int = MAX_SCAN):
-    """First tag match per probe row from scan offset `start` (see
-    join_probe_plain). CUDA tensors go through csrc/join_probe.cu, CPU
-    tensors through join_probe_plain."""
+def pack_probe_params(slots, h, live, matched, brow, bits: int, keys) -> ProbeParams:
+    """The probe launch's parameters: the tensors' addresses, sizes and,
+    per key of `keys` (as _kernel_keys makes them), the data and
+    validity addresses, element kind and lane count."""
+    dev = h.device
+    p = ProbeParams(slots.data_ptr(), h.data_ptr(), live.data_ptr(), matched.data_ptr(),
+                    brow.data_ptr(), h.shape[0], slots.shape[0], bits, len(keys))
+    for k, (pd_, bd_, pvld, bvld) in enumerate(keys):
+        if any(t is not None and t.device != dev for t in (pd_, bd_, pvld, bvld)):
+            raise ValueError("keys must be on the probe rows' device")
+        p.key[k] = ProbeKey(pd_.data_ptr(), bd_.data_ptr(),
+                            None if pvld is None else pvld.data_ptr(),
+                            None if bvld is None else bvld.data_ptr(),
+                            KEY_KINDS[pd_.dtype], 1 if pd_.ndim == 1 else pd_.shape[1])
+    return p
+
+
+def join_probe_plain(slots, h, live, bits: int, prep):
+    """(matched, brow) in plain torch: the first VERIFIED match of every
+    live probe row in the slot region, brow -1 where none. Rounds of
+    _PLAIN_ROUND slots from each row's desired slot, bounded by the
+    table's size; every tag match before the row's first vacant slot is
+    checked with _verify, and a row stops at its first verified match or
+    at a vacant slot."""
+    dev = h.device
+    tag, desired = _tag_desired(h, bits)
+    slot_tag, slot_row = slots[:, 0], slots[:, 1]
+    limit = slots.shape[0] - 1
+    m = h.shape[0]
+    matched = torch.zeros(m, dtype=torch.bool, device=dev)
+    brow = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    act = torch.nonzero(live).flatten()
+    steps = torch.arange(_PLAIN_ROUND, device=dev)
+    start = 0
+    while act.numel() and start <= limit:
+        cand = torch.clamp(desired[act].to(torch.int64)[:, None] + start + steps, max=limit)
+        st, sr = slot_tag[cand], slot_row[cand]
+        scanning = torch.cumsum((st == EMPTY_TAG).to(torch.int32), 1) == 0
+        hr, hc = torch.nonzero(scanning & (st == tag[act][:, None]), as_tuple=True)
+        ok = _verify(prep, act[hr], sr[hr, hc])
+        good = torch.zeros_like(scanning)
+        good[hr[ok], hc[ok]] = True
+        found = good.any(1)
+        first = good.to(torch.int32).argmax(1)
+        matched[act[found]] = True
+        brow[act[found]] = sr[found, first[found]]
+        act = act[~found & scanning[:, -1]]
+        start += _PLAIN_ROUND
+    return matched, brow
+
+
+def join_probe(slots, h, live, bits: int, prep):
+    """(matched bool, brow int32) per probe row: the first slot from the
+    row's desired slot, before the first vacant one, whose tag is the
+    row's AND whose build row's keys equal the row's (brow -1 where none;
+    rows with live[i] false or a NULL key never match). `h` holds the
+    probe rows' 64-bit hashes, `prep` the keys as _prepare_keys makes
+    them (at most MAX_KEYS). The overflow region is not searched. CUDA
+    tensors go through csrc/join_probe.cu (one launch, no host read),
+    CPU tensors through join_probe_plain."""
     global probe_launches
-    _check_vectors(slot_tag, slot_row)
-    _check_vectors(tag, desired, start)
-    if slot_tag.device != tag.device:
+    _check_rows(h, live)
+    if (slots.dtype != torch.int32 or tuple(slots.shape) != (table_size(bits), 2)
+            or not slots.is_contiguous()):
+        raise ValueError("expected a contiguous (table_size(bits), 2) int32 slot table")
+    if slots.device != h.device:
         raise ValueError("table and probe rows must be on one device")
-    dev = tag.device
+    keys = _kernel_keys(prep)
+    dev = h.device
     if dev.type == "cpu":
-        return join_probe_plain(slot_tag, slot_row, tag, desired, start, max_scan)
+        return join_probe_plain(slots, h, live, bits, keys)
     if dev.type != "cuda":
         raise ValueError(f"no join_probe kernel for device {dev}")
-    m = tag.shape[0]
-    pos = torch.empty(m, dtype=torch.int32, device=dev)
-    row = torch.empty_like(pos)
-    more = torch.empty_like(pos)
+    m = h.shape[0]
+    matched = torch.empty(m, dtype=torch.bool, device=dev)
+    brow = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
-        return pos, row, more
-    fn = _bind("join_probe", [_P, _P, _I, _P, _P, _P, _LL, _I, _P, _P, _P, _I, _I, _P])
-    rc = fn(slot_tag.data_ptr(), slot_row.data_ptr(), slot_tag.shape[0], tag.data_ptr(),
-            desired.data_ptr(), start.data_ptr(), m, max_scan, pos.data_ptr(),
-            row.data_ptr(), more.data_ptr(), _blocks(m), THREADS,
-            torch.cuda.current_stream(dev).cuda_stream)
+        return matched, brow
+    p = pack_probe_params(slots, h, live, matched, brow, bits, keys)
+    rc = _lib("join_probe").join_probe_launch(ctypes.byref(p), _blocks(m), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"join_probe launch failed: cudaError {rc}")
     probe_launches += 1
-    return pos, row, more
+    return matched, brow
 
 
 # ---------------------------------------------------------------------------
@@ -332,35 +506,33 @@ def join_probe(slot_tag, slot_row, tag, desired, start, max_scan: int = MAX_SCAN
 def build_table(page: Page, key_exprs) -> Optional[JoinTable]:
     """The linear-probe JoinTable of a build page, or None when the shape
     takes the sorted-hash layout instead: no keys (cross join), a build
-    over TABLE_MAX_BUILD rows, or varchar keys too large to value-hash."""
+    over TABLE_MAX_BUILD rows, or varchar keys too large to value-hash.
+    Two host reads: the live count (it sizes the table) and the overflow
+    count after the insert."""
     global table_builds
     if not key_exprs or page.capacity > TABLE_MAX_BUILD:
         return None
     keys = [evaluate(e, page) for e in key_exprs]
     if not value_hashable(keys):
         return None
-    dev = page.device
-    n = page.capacity
     cnt = int(page.count)
     bits = _pick_bits(cnt)
-    tag, desired = _tag_desired(hash_rows_values(keys), bits)
     # only live rows with fully NON-NULL keys: NULL never equi-matches
     live = page.live_mask()
     for k in keys:
         if k.valid is not None:
             live = live & k.valid
-    rows = torch.where(live, torch.arange(n, dtype=torch.int32, device=dev), -1)
-    slot_tag, slot_row, pending = join_insert(tag, rows.to(torch.int32), desired, bits)
-    left = torch.nonzero(pending).flatten()
-    if left.numel():
-        of_tag, order = torch.sort(tag[left], stable=True)
-        of_row = rows[left][order].to(torch.int32)
+    slots, overflow, last = join_insert(hash_rows_values(keys), live, bits)
+    left = int(last) + 1
+    if left:
+        pairs = overflow[:left]
+        wide = pairs.to(torch.int64)
+        pairs = pairs[torch.argsort(wide[:, 0] * (1 << 32) + wide[:, 1])]  # by (tag, row)
+        of_tag, of_row = pairs[:, 0].contiguous(), pairs[:, 1].contiguous()
     else:
-        of_tag = torch.empty(0, dtype=torch.int32, device=dev)
-        of_row = torch.empty(0, dtype=torch.int32, device=dev)
+        of_tag = of_row = torch.empty(0, dtype=torch.int32, device=page.device)
     table_builds += 1
-    return JoinTable(slot_tag, slot_row, bits, of_tag, of_row, page, tuple(keys),
-                     tuple(key_exprs), cnt)
+    return JoinTable(slots, bits, of_tag, of_row, page, tuple(keys), tuple(key_exprs), cnt)
 
 
 # ---------------------------------------------------------------------------
@@ -385,7 +557,7 @@ def _comparable_pair(pv: Val, bv: Val):
 def _prepare_keys(build_keys: Sequence[Val], probe_keys: Sequence[Val]):
     """Per key: (probe data, build data, probe valid, build valid). Both
     build layouts (this table and ops/join.py's sorted hash) verify keys
-    through this and `_verify`."""
+    through this: the probe kernel on the card, `_verify` in tensor code."""
     return [(*_comparable_pair(pv, bv), pv.valid, bv.valid)
             for pv, bv in zip(probe_keys, build_keys)]
 
@@ -412,37 +584,17 @@ def _verify(prep, probe_idx: torch.Tensor, build_rows: torch.Tensor) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
-def _probe_n1(jt: JoinTable, ptag, pdesired, live, prep):
-    """First VERIFIED match per live probe row: (matched, build_row).
-
-    Drives the probe kernel: a row whose tag match fails key verification
-    relaunches just past that match, a row whose scan ran max_scan slots
-    without a match or EMPTY resumes max_scan further on. One host read per
-    round (the pending set's size)."""
-    dev = ptag.device
-    m = ptag.shape[0]
-    matched = torch.zeros(m, dtype=torch.bool, device=dev)
-    brow = torch.zeros(m, dtype=torch.int32, device=dev)
-    start = torch.zeros(m, dtype=torch.int32, device=dev)
-    pend = torch.nonzero(live).flatten()
-    limit = jt.slot_tag.shape[0] - 1
-    rounds = 0
-    while pend.numel() and rounds <= limit:
-        pd_ = pdesired[pend]
-        st = start[pend]
-        pos, row, more = join_probe(jt.slot_tag, jt.slot_row, ptag[pend], pd_, st)
-        got = pos >= 0
-        ok = got & _verify(prep, pend, torch.clamp(row, min=0))
-        matched[pend] = ok
-        brow[pend] = torch.where(ok, row, brow[pend])
-        retry = got & ~ok  # a tag collision: scan on past it
-        more = more.bool()
-        start[pend] = torch.where(retry, pos - pd_ + 1, torch.where(more, st + MAX_SCAN, st))
-        pend = pend[retry | more]
-        rounds += 1
+def _probe_n1(jt: JoinTable, h, live, prep):
+    """First VERIFIED match per live probe row: (matched, build_row), -1
+    where none. The slot region is one join_probe call: on the card one
+    launch and no host read. The overflow region (present only after heavy
+    key skew; its size is known on the host) is searched in tensor code
+    for the rows still unmatched."""
+    matched, brow = join_probe(jt.slots, h, live, jt.bits, prep)
     if jt.of_tag.numel():
         rest = torch.nonzero(live & ~matched).flatten()
         if rest.numel():
+            ptag, _ = _tag_desired(h, jt.bits)
             m2, b2 = _probe_overflow(jt, ptag, prep, rest)
             matched[m2] = True
             brow[m2] = b2
@@ -549,9 +701,9 @@ def _compact_page(page: Page, keep: torch.Tensor) -> Page:
 
 
 def _probe_setup(probe: Page, jt: JoinTable, probe_key_exprs):
+    """(probe row hashes, prepared keys) of a probe page."""
     probe_keys = [evaluate(e, probe) for e in probe_key_exprs]
-    ptag, pdesired = _tag_desired(hash_rows_values(probe_keys), jt.bits)
-    return ptag, pdesired, _prepare_keys(jt.key_vals, probe_keys)
+    return hash_rows_values(probe_keys), _prepare_keys(jt.key_vals, probe_keys)
 
 
 # ---------------------------------------------------------------------------
@@ -563,8 +715,8 @@ def table_join_n1(probe: Page, jt: JoinTable, probe_key_exprs, build_names: Sequ
                   out_build_names: Sequence[str], kind: str = "inner") -> Page:
     """join_n1 over the hash table (inner | left | semi | anti)."""
     live = probe.live_mask()
-    ptag, pdesired, prep = _probe_setup(probe, jt, probe_key_exprs)
-    matched, brow = _probe_n1(jt, ptag, pdesired, live, prep)
+    h, prep = _probe_setup(probe, jt, probe_key_exprs)
+    matched, brow = _probe_n1(jt, h, live, prep)
     if kind == "semi":
         return _compact_page(probe, matched & live)
     if kind == "anti":
@@ -594,8 +746,8 @@ def table_join_n1(probe: Page, jt: JoinTable, probe_key_exprs, build_names: Sequ
 def table_semi_mask(probe: Page, jt: JoinTable, probe_key_exprs) -> torch.Tensor:
     """semi_match_mask over the hash table (the mark join)."""
     live = probe.live_mask()
-    ptag, pdesired, prep = _probe_setup(probe, jt, probe_key_exprs)
-    matched, _ = _probe_n1(jt, ptag, pdesired, live, prep)
+    h, prep = _probe_setup(probe, jt, probe_key_exprs)
+    matched, _ = _probe_n1(jt, h, live, prep)
     return matched & live
 
 
@@ -606,7 +758,8 @@ def table_join_expand(probe: Page, jt: JoinTable, probe_key_exprs, probe_out: Se
     returned overflow is exactly total_matches - out_capacity (one retry
     always suffices)."""
     live = probe.live_mask()
-    ptag, pdesired, prep = _probe_setup(probe, jt, probe_key_exprs)
+    h, prep = _probe_setup(probe, jt, probe_key_exprs)
+    ptag, pdesired = _tag_desired(h, jt.bits)
     probe_idx, build_idx = _probe_all(jt, ptag, pdesired, live, prep)
     build_idx = build_idx.to(torch.int64)
     if kind == "left":
@@ -642,8 +795,8 @@ def table_multiway_n1(probe: Page,
     keep = probe.live_mask()
     gathered = []
     for jt, key_exprs, build_names, out_names in specs:
-        ptag, pdesired, prep = _probe_setup(probe, jt, key_exprs)
-        matched, brow = _probe_n1(jt, ptag, pdesired, keep, prep)
+        h, prep = _probe_setup(probe, jt, key_exprs)
+        matched, brow = _probe_n1(jt, h, keep, prep)
         keep = keep & matched
         gathered.append((brow, jt, build_names, out_names))
     idx = torch.nonzero(keep).flatten()

@@ -1,7 +1,9 @@
 """presto_tpu_torch on an NVIDIA card: the groupby, join-insert,
 join-probe and fused-Q1 kernels against their plain versions (the groupby
 kernel also at the edges of its regimes and grid, chip_smoke.py's
-GROUPBY_EDGES, and as one launch per call), and TPC-H queries and the
+GROUPBY_EDGES, and as one launch per call; the first-match join probe as
+one launch, the table build with at most two host reads), and TPC-H
+queries and the
 hand-coded pipelines on "cuda" against the same on "cpu".
 
 These tests import neither jax nor presto_tpu, so they also run where only
@@ -90,15 +92,13 @@ def test_kernel_call_is_one_launch_without_copies(cuda):
     assert res["launches"] == 1 and res["memcpy"] == 0 and res["stream_syncs"] == 0
 
 
-def _insert_inputs(cuda, n, bits, skew):
+def _insert_inputs(cuda, n, skew):
     rng = np.random.default_rng(17 + skew)
-    tag_u = rng.integers(0, 0xFFFFFFFF, n, dtype=np.int64)
-    if skew:  # one tag repeated 400 times: rows overflow, probes continue
-        tag_u[rng.permutation(n)[:400]] = tag_u[0]
-    tag = torch.from_numpy(tag_u.astype(np.uint32).view(np.int32).copy()).to(cuda)
-    desired = torch.from_numpy((tag_u >> (32 - bits)).astype(np.int32)).to(cuda)
-    row = torch.from_numpy(np.where(rng.random(n) < 0.95, np.arange(n), -1).astype(np.int32))
-    return tag, row.to(cuda), desired
+    h = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    if skew:  # one hash repeated 400 times: rows overflow, scans pass other rows
+        h[rng.permutation(n)[:400]] = h[0]
+    live = rng.random(n) < 0.95
+    return torch.from_numpy(h).to(cuda), torch.from_numpy(live).to(cuda)
 
 
 @pytest.mark.cuda
@@ -106,30 +106,58 @@ def _insert_inputs(cuda, n, bits, skew):
 def test_join_kernels_match_plain(cuda, skew):
     n = 200_000
     bits = jk._pick_bits(n)
-    tag, row, desired = _insert_inputs(cuda, n, bits, skew)
+    h, live = _insert_inputs(cuda, n, skew)
     before = jk.insert_launches, jk.probe_launches
-    got = jk.join_insert(tag, row, desired, bits)
-    plain = jk.join_insert_plain(tag, row, desired, bits)
+    got = jk.join_insert(h, live, bits)
+    plain = jk.join_insert_plain(h, live, bits)
     torch.cuda.synchronize()
     assert jk.insert_launches == before[0] + 1
     # any race winner is a valid placement: hold both to the invariants
     for out in (got, plain):
-        assert jk.insert_invariant_errors(tag, row, desired, bits, *out) == []
-    assert bool(got[2].any()) == skew
-    # the probe: exact against its plain version on the kernel's table
+        assert jk.insert_invariant_errors(h, live, bits, *out) == []
+    assert (int(got[2]) >= 0) == skew and (int(plain[2]) >= 0) == skew
+    # the probe: exact against its plain version on the kernel's table,
+    # with the row number as the key (each row finds exactly itself) and
+    # with a key that half the probe rows miss
     rng = np.random.default_rng(5)
     m = 300_000
     pick = torch.from_numpy(rng.integers(0, n, m)).to(cuda)
-    ptag = torch.where(pick % 2 == 0, tag[pick], tag[pick] ^ 0x5A5A5A5A).contiguous()
-    pdes = ((ptag.to(torch.int64) & 0xFFFFFFFF) >> (32 - bits)).to(torch.int32)
-    start = torch.from_numpy(rng.integers(0, 3, m).astype(np.int32)).to(cuda)
-    want = jk.join_probe_plain(got[0], got[1], ptag, pdes, start)
-    have = jk.join_probe(got[0], got[1], ptag, pdes, start)
-    torch.cuda.synchronize()
-    assert jk.probe_launches == before[1] + 1
-    for a, b in zip(have, want):
-        assert torch.equal(a, b)
-    assert bool((have[0] >= 0).any()) and (not skew or bool(have[2].any()))
+    ph = h[pick].contiguous()
+    plive = live[pick].contiguous()
+    ids = torch.arange(n, dtype=torch.int32, device=cuda)
+    pkey = torch.where(pick % 2 == 0, pick, pick + n).to(torch.int32)
+    for prep in ([(pick.to(torch.int32), ids, None, None)], [(pkey, ids, None, None)]):
+        want = jk.join_probe_plain(got[0], ph, plive, bits, prep)
+        have = jk.join_probe(got[0], ph, plive, bits, prep)
+        torch.cuda.synchronize()
+        assert torch.equal(have[0], want[0]) and torch.equal(have[1], want[1])
+        assert bool(have[0].any())
+    assert jk.probe_launches == before[1] + 2
+    # rows found in the slot region are exactly the live rows that did not
+    # overflow
+    over = torch.zeros(n, dtype=torch.bool, device=cuda)
+    over[got[1][:int(got[2]) + 1, 1].to(torch.int64)] = True
+    full = jk.join_probe(got[0], h, live, bits, [(ids, ids, None, None)])
+    assert torch.equal(full[0], live & ~over)
+
+
+@pytest.mark.cuda
+def test_probe_n1_is_one_launch_and_build_reads_twice(cuda):
+    """A warm first-match probe of a table with no overflow region: one
+    kernel on the device, no copy, no stream sync; a warm build: one insert
+    launch, no nonzero, at most two host reads."""
+    rng = np.random.default_rng(29)
+    key = (chip_smoke._key("k", "bigint"),)
+    build = chip_smoke._page({"k": (rng.permutation(50_000).astype(np.int64), "bigint", None,
+                                    None)}, cuda)
+    probe = chip_smoke._page({"k": (rng.integers(0, 100_000, 200_000), "bigint", None, None)},
+                             cuda)
+    res = chip_smoke.build_check("build_50k", build, key)
+    assert res["launches"] == 1 and res["nonzero"] == 0 and res["dtoh"] <= 2
+    jt = jk.build_table(build, key)
+    h, prep = jk._probe_setup(probe, jt, key)
+    res = chip_smoke.probe_launch_check("probe_200k", jt, h, probe.live_mask(), prep)
+    assert res["launches"] == 1 and res["memcpy"] == 0 and res["stream_syncs"] == 0
 
 
 @pytest.mark.cuda

@@ -125,21 +125,23 @@ def test_insert_matches_reference_kernel(skew, monkeypatch):
     tt = jk.build_table(tp, (tk,))
     assert rt.bits == tt.bits and rt.count == tt.count and len(rt.of_tag) == tt.of_tag.numel()
     assert (len(rt.of_tag) > 0) == skew
-    # the port's insert inputs, held to the table invariants, for both
-    # tables (the reference's carried across)
+    # the port's insert inputs (row hashes, live rows with non-NULL keys),
+    # held to the table invariants, for both tables (the reference's
+    # carried across, its overflow rows as (tag, row) pairs)
     kv = tt.key_vals[0]
-    tag, desired = jk._tag_desired(hash_rows_values([kv]), tt.bits)
+    h = hash_rows_values([kv])
     live = tp.live_mask() & kv.valid
-    rows = torch.where(live, torch.arange(tp.capacity, dtype=torch.int32), -1).to(torch.int32)
-    st, sr, pending = jk.join_insert(tag, rows, desired, tt.bits)
-    assert jk.insert_invariant_errors(tag, rows, desired, tt.bits, st, sr, pending) == []
+    slots, overflow, last = jk.join_insert(h, live, tt.bits)
+    assert jk.insert_invariant_errors(h, live, tt.bits, slots, overflow, last) == []
     carried = jk.JoinTable.from_numpy(rt.slot_tag, rt.slot_row, rt.bits, rt.of_tag, rt.of_row,
                                       tp, tt.key_vals, tt.key_exprs, rt.count, "cpu")
-    rpend = torch.zeros(tp.capacity, dtype=torch.int32)
-    rpend[torch.from_numpy(rt.of_row.astype(np.int64))] = 1
-    assert jk.insert_invariant_errors(tag, rows, desired, tt.bits, carried.slot_tag,
-                                      carried.slot_row, rpend) == []
+    rover = torch.full((tp.capacity, 2), -1, dtype=torch.int32)
+    rover[:len(rt.of_row)] = torch.stack([carried.of_tag, carried.of_row], dim=1)
+    assert jk.insert_invariant_errors(h, live, tt.bits, carried.slots, rover,
+                                      torch.tensor(len(rt.of_row) - 1)) == []
+    # overflow tags equal the reference's (same rows under the same tag)
     assert torch.equal(carried.of_tag, tt.of_tag)
+    assert int(last) + 1 == len(rt.of_tag)
     # equal join results over either table
     rng2 = np.random.default_rng(9)
     _, probe = _pages({"k": (rng2.integers(0, 800, 2000).astype(np.int64), "bigint", None, None),
@@ -153,32 +155,43 @@ def test_insert_matches_reference_kernel(skew, monkeypatch):
 
 
 def test_probe_plain_equals_reference_kernel(monkeypatch):
+    """join_probe_plain (the slot region) and the port's _probe_n1 (slot
+    region, then the overflow region) against the reference's _probe_n1
+    driving its Pallas probe kernel in interpret mode, on the reference's
+    own table carried across: matched and the build row are equal."""
     monkeypatch.setenv("PRESTO_TPU_PALLAS_JOIN", "interp")
     rng = np.random.default_rng(7)
     rp, tp = _insert_inputs(rng, 600, 150, True)  # dups: long scans, overflow
     (rk,), (tk,) = _keys(("k", "bigint"))
     rt = rpj.build_table(rp, (rk,))
     jt = jk.JoinTable.from_numpy(rt.slot_tag, rt.slot_row, rt.bits, rt.of_tag, rt.of_row,
-                                 tp, (), (tk,), rt.count, "cpu")
+                                 tp, (jk.evaluate(tk, tp),), (tk,), rt.count, "cpu")
+    assert jt.of_tag.numel() > 0
     m = 2000
-    h = np.concatenate([
-        np_hash_rows_values([rp.block("k")]),
-        rng.integers(0, 2 ** 63, m - rp.capacity, dtype=np.int64).view(np.uint64),
-    ])
-    ptag, pdes = rpj._tag_desired(h, rt.bits)
-    start = rng.integers(0, 40, m).astype(np.int32)
-    start[: m // 2] = 0
-    pos, row, more = rpj._pallas_probe_first(rt, ptag, pdes, start, interpret=True)
-    tpos, trow, tmore = jk.join_probe(
-        jt.slot_tag, jt.slot_row, torch.from_numpy(ptag.view(np.int32)),
-        torch.from_numpy(pdes.astype(np.int32)), torch.from_numpy(start),
-    )
-    np.testing.assert_array_equal(tpos.numpy(), pos)
-    np.testing.assert_array_equal(trow.numpy(), row)
-    np.testing.assert_array_equal(tmore.numpy(), more.astype(np.int32))
-    assert more.any() and (pos >= 0).any() and (pos < 0).any()
+    pk = np.concatenate([rp.block("k").data, rng.integers(0, 400, m - rp.capacity)])
+    rpp, tpp = _pages({"k": (pk.astype(np.int64), "bigint", rng.random(m) > 0.1, None)},
+                      count=m - 3)
+    rkey, tkey = rpp.block("k"), jk.evaluate(tk, tpp)
+    rlive = np.arange(m) < m - 3
+    ptag, pdes = rpj._tag_desired(np_hash_rows_values([rkey]), rt.bits)
+    want_m, want_b = rpj._probe_n1(rt, ptag, pdes, rlive, rpj._host_prepare_keys(rt, [rkey]),
+                                   "interp")
+    h = hash_rows_values([tkey])
+    live = tpp.live_mask()
+    prep = jk._prepare_keys(jt.key_vals, [tkey])
+    matched, brow = jk._probe_n1(jt, h, live, prep)
+    np.testing.assert_array_equal(matched.numpy(), want_m)
+    np.testing.assert_array_equal(brow.numpy()[want_m], want_b[want_m])
+    # the slot region alone: every match it finds is the reference's, and
+    # any row it leaves that the reference matched is in the overflow region
+    sm, sb = jk.join_probe_plain(jt.slots, h, live, jt.bits, prep)
+    sm, sb = sm.numpy(), sb.numpy()
+    assert (sm <= want_m).all() and (sb[sm] == want_b[sm]).all() and (sb[~sm] == -1).all()
+    rest = want_m & ~sm
+    assert np.isin(want_b[rest], jt.of_row.numpy()).all()
+    assert sm.any() and (~want_m & rlive).any()
     # the port's tags and desired slots are the reference's
-    t2, d2 = jk._tag_desired(torch.from_numpy(h.view(np.int64)), rt.bits)
+    t2, d2 = jk._tag_desired(h, rt.bits)
     np.testing.assert_array_equal(t2.numpy(), ptag.view(np.int32))
     np.testing.assert_array_equal(d2.numpy(), pdes)
 
