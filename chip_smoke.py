@@ -6,9 +6,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phase 1 builds every CUDA kernel of the package from csrc/ (nvcc, sm_90a),
 one nvcc per source, all started together, prints ptxas's registers and
-spills of every kernel instance, and checks the group-by and join
-kernels' parameter structs as the build lays them out against their
-ctypes twins.
+spills of every kernel instance, and checks the kernels' parameter
+structs as the build lays them out against their ctypes twins (group-by,
+join insert and probe, fused Q1).
 Phase 3 (run before phase 2) drives the main paths at SF 1, each with every
 kernel's launch count set to 0 just before it and read just after:
 through `Session(TpchCatalog(1.0), device="cuda").query(...)`, TPC-H Q1
@@ -26,7 +26,7 @@ through its host twin), and the script checks that Q1, Q5 and Q18
 launched the group-by kernel, that join_insert launched on each join query and
 join_probe on Q3, Q17 and Q18 (on both catalogs; on the device catalog
 the reached Q18 in its place), and that q1_local_kernel, and only it,
-launched the fused-Q1 kernel.
+launched the fused-Q1 kernel, once a run.
 Phase 2 holds each kernel against its plain PyTorch version on the card:
 the group-by kernel at Q1's, Q5's and Q18's (hash-slot) calls, two wider
 G 64 cases and the edges of its regimes and grid (GROUPBY_EDGES), and
@@ -42,10 +42,14 @@ by finding every row through the probe kernel, probes exactly (matched,
 build row); under torch.profiler a warm `_probe_n1` (at the largest
 captured probe and at 6M rows) is one launch with no copy or stream
 synchronise, and a warm `build_table` makes one insert launch, no
-`nonzero` and at most two host reads; the fused-Q1 kernel on the SF 1 page, on SF 10's
-60,000,000 rows generated on the card, with a count below capacity and a
-cutoff that empties groups, and on a case whose sum of charge passes 2^63
-(also held to exact Python-int totals). It times the kernel, the plain
+`nonzero` and at most two host reads; the fused-Q1 kernel on the SF 1 page
+(where, under torch.profiler, a warm q1_sums call is one launch with no
+copy or stream synchronise), on SF 10's 60,000,000 rows generated on the
+card, with a count below capacity and a cutoff that empties groups, on a
+case whose sum of charge passes 2^63 (also held to exact Python-int
+totals), and at the edges of its loads and grid (Q1_EDGES: unaligned
+columns, a partial last step, fewer rows than a block's step, count 0,
+count past n), each call raising the launch count by one. It times the kernel, the plain
 version, one PyTorch library call where one computes the same function,
 and the byte bound.
 It prints the card's name and power limit, a `{"kernels": [...]}` JSON
@@ -202,26 +206,31 @@ def kernel_case(name, call, tol_fn, expect=None, one_launch=False):
     return res
 
 
-def one_launch_check(name, call):
-    """One warm groupby_totals call under torch.profiler: exactly one
-    kernel launch (the launch count +1, one cudaLaunchKernel, one device
-    kernel: no fold after it), no host<->device copy and no
-    cudaStreamSynchronize. The one cudaDeviceSynchronize is the check's own,
-    closing the window."""
+def one_launch_check(name, call, kernel="groupby_partials"):
+    """One warm call of `kernel`'s wrapper (groupby_totals, or q1_sums for
+    "q1_partials") under torch.profiler: exactly one kernel launch (the
+    launch count +1, one cudaLaunchKernel, one device kernel: no fold after
+    it), no host<->device copy and no cudaStreamSynchronize. The one
+    cudaDeviceSynchronize is the check's own, closing the window."""
     import torch
 
+    from presto_tpu_torch.ops import agg_kernel as ak
     from presto_tpu_torch.ops import groupby_kernel as gk
 
-    gk.groupby_totals(*call)
+    fn, counter, symbol = {
+        "groupby_partials": (gk.groupby_totals, lambda: gk.launches, "groupby_"),
+        "q1_partials": (ak.q1_sums, lambda: ak.launches, "q1_partials_kernel"),
+    }[kernel]
+    fn(*call)
     torch.cuda.synchronize()
-    events, _, launched = _trace(lambda: gk.groupby_totals(*call), lambda: gk.launches)
+    events, _, launched = _trace(lambda: fn(*call), counter)
 
     def count(pred):
         return _count_events(events, pred)
 
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     res = {
-        "case": name, "launches": launched,
+        "case": name, "kernel": kernel, "launches": launched,
         "cuda_launch_kernel": count(lambda e: e.key in _LAUNCH_KEYS),
         "device_events": {e.key[:60]: e.count for e in device},
         "memcpy": count(lambda e: "Memcpy" in e.key or e.key.startswith("cudaMemcpy")),
@@ -229,10 +238,10 @@ def one_launch_check(name, call):
         "device_syncs": count(lambda e: e.key == "cudaDeviceSynchronize"),
     }
     print("phase2 one_launch", json.dumps(res), flush=True)
-    ours = sum(c for k, c in res["device_events"].items() if "groupby_" in k)
+    ours = sum(c for k, c in res["device_events"].items() if symbol in k)
     if (res["launches"] != 1 or res["cuda_launch_kernel"] != 1 or ours != 1
             or sum(res["device_events"].values()) != 1 or res["memcpy"] or res["stream_syncs"]):
-        raise AssertionError(f"{name}: a groupby_totals call is not one launch without copies "
+        raise AssertionError(f"{name}: a {kernel} call is not one launch without copies "
                              f"or syncs: {res}")
     return res
 
@@ -724,8 +733,9 @@ def benchmark_path(sf=1.0, device="cuda", runs=3):
     counts = _counts()
     report.update(sql_report)
     per.update(per_sql)
-    if per["q1_local_kernel"]["q1_partials"] < 1:
-        raise AssertionError("q1_local_kernel did not launch the q1_partials kernel")
+    if per["q1_local_kernel"]["q1_partials"] != 1:
+        raise AssertionError("q1_local_kernel did not launch the q1_partials kernel once: "
+                             f"{per['q1_local_kernel']}")
     if counts["q1_partials"] != runs * per["q1_local_kernel"]["q1_partials"]:
         raise AssertionError(f"q1_partials launched outside q1_local_kernel: {per}")
     return report, per, counts, page
@@ -1167,26 +1177,32 @@ def _lanes_value(lanes) -> int:
 
 def q1_kernel_case(name, cols, count, cutoff, exact=None):
     """q1_sums (kernel) against q1_sums_plain on one call's inputs: every
-    field equal. `exact` maps a group to {field: Python-int total} the
-    kernel must also equal. Times the kernel, the plain version, one
-    index_add_ of a prepared (n, 8) channel tensor by group id (the
-    library yardstick) and the byte bound: ship, returnflag and linestatus
-    read for each row below count (12 B), the four int64 decimals by the
-    32 B sectors (4 rows) that hold a selected row (selected rows are
-    scattered, so a sector is read whole), the (6, 8) totals written."""
+    field equal, and the launch count up by exactly 1. `exact` maps a group
+    to {field: Python-int total} the kernel must also equal. Times the
+    kernel, the plain version, one index_add_ of a prepared (n, 8) channel
+    tensor by group id (the library yardstick) and the byte bound
+    (benchmark/q1bench.py's bound_bytes: ship, returnflag and linestatus
+    for each row below count, the int64 decimals by the 32 B sectors that
+    hold a selected row, the totals)."""
     import torch
 
+    from presto_tpu_torch.benchmark import q1bench
     from presto_tpu_torch.ops import agg_kernel as ak
 
     dev = cols[0].device
     count = torch.tensor(count, dtype=torch.int32, device=dev) if isinstance(count, int) else count
     cutoff = torch.tensor(cutoff, dtype=torch.int32, device=dev)
     call = (*cols, count, cutoff)
+    before = ak.launches
     got = ak.q1_sums(*call)
+    launched = ak.launches - before
     want = ak.q1_sums_plain(*call)
     torch.cuda.synchronize()
+    if launched != 1:
+        raise AssertionError(f"{name}: one q1_sums call launched {launched} kernels")
     err = max(int((got[k] - want[k]).abs().max()) for k in want)
-    if err:
+    if err or set(got) != set(want) or any(
+            got[k].dtype != want[k].dtype or got[k].shape != want[k].shape for k in want):
         raise AssertionError(f"{name}: q1_partials disagrees with its plain version, max err {err}")
     for g, fields in (exact or {}).items():
         for field, total in fields.items():
@@ -1198,7 +1214,6 @@ def q1_kernel_case(name, cols, count, cutoff, exact=None):
     plain_ms = cuda_ms(lambda: ak.q1_sums_plain(*call), iters=5)
     qty, price, disc, tax, rf, ls, ship = cols
     n = qty.shape[0]
-    rows = min(n, int(count))
     live = (torch.arange(n, device=dev) < count) & (ship <= cutoff)
     g = torch.where(live, rf.to(torch.int64) * 2 + ls, ak.GROUPS)
     dp = price * (100 - disc)
@@ -1208,25 +1223,85 @@ def q1_kernel_case(name, cols, count, cutoff, exact=None):
                          charge >> 32, charge & mask], dim=1)
     acc = torch.zeros((ak.GROUPS + 1, ak.CHANNELS), dtype=torch.int64, device=dev)
     library_ms = cuda_ms(lambda: acc.zero_().index_add_(0, g, chans))
-    selected = int(live.sum())
-    pad = torch.zeros((-n) % 4, dtype=torch.bool, device=dev)
-    sectors = int(torch.cat([live, pad]).view(-1, 4).any(dim=1).sum())
-    nbytes = 12 * rows + 4 * 32 * sectors + ak.GROUPS * ak.CHANNELS * 8
     del chans, dp, charge, g, live
-    res = {"case": name, "n": n, "count": rows, "selected": selected, "sectors": sectors,
+    bound = q1bench.bound_bytes(cols, count, cutoff)
+    res = {"case": name, **{k: bound[k] for k in ("n", "count", "selected", "sectors")},
+           "paired_loads": ak.paired_loads(cols),
            "groups_empty": int((got["count"] == 0).sum()), "max_abs_err": float(err),
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+           "bound_ms": bound["bytes"] / HBM_BYTES_PER_S * 1e3, "bytes": bound["bytes"]}
     print("phase2", json.dumps(res), flush=True)
     return res
 
 
+# names of q1_edge_cases' cases, in order
+Q1_EDGES = ("unaligned_view", "one_column_unaligned", "ragged_n", "tiny_n", "count_0",
+            "count_past_n")
+
+
+def q1_edge_cases(cols):
+    """{name: (columns, count)}: q1_sums calls at the edges of the fused-Q1
+    kernel's loads and grid (Q1_EDGES), cut from Q1's columns `cols`."""
+    import torch
+
+    n = cols[0].shape[0]
+    m = n // 3 * 2 + 1  # odd: a warp's last step is partial
+    # one column one row into a buffer of its own: 4 bytes off the 8 the
+    # paired int32 loads need
+    ship = torch.empty(n + 1, dtype=cols[6].dtype, device=cols[6].device)
+    ship[1:] = cols[6]
+    cases = {
+        # every column one row in: int64 8 and int32 4 bytes off alignment
+        "unaligned_view": ([c[1:] for c in cols], n - 1),
+        "one_column_unaligned": ([*cols[:6], ship[1:]], n),
+        "ragged_n": ([c[:m] for c in cols], m),
+        "tiny_n": ([c[:37] for c in cols], 37),  # less than a block's step: one block
+        "count_0": (list(cols), 0),
+        "count_past_n": ([c[:m] for c in cols], m + 5000),
+    }
+    assert tuple(cases) == Q1_EDGES
+    return cases
+
+
+def q1_one_launch(sf=1.0):
+    """one_launch_check of a warm q1_sums call over lineitem's Q1 page at
+    SF `sf`, generated on the card."""
+    import torch
+
+    from presto_tpu_torch.benchmark import handcoded
+
+    page = handcoded.lineitem_q1_page(sf, device="cuda")
+    cols = [page.block(c).data for c in handcoded.Q1_COLUMNS]
+    cutoff = torch.tensor(Q1_CUTOFF, dtype=torch.int32, device="cuda")
+    return one_launch_check(f"q1_sf{sf:g}_page", (*cols, page.count, cutoff), "q1_partials")
+
+
+def q1_one_launch_in_child():
+    """q1_one_launch in a new process. In a process that has run the main
+    paths and the phase-2 cases, torch.profiler on the card has lost the
+    device record of every window of this check (three tries), while
+    fresh processes delivered it."""
+    import os
+
+    out = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.q1_one_launch()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    for line in out.stdout.splitlines():
+        if line.startswith("phase2"):
+            print(line, flush=True)
+    if out.returncode != 0:
+        raise AssertionError(f"q1_one_launch failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+
+
 def q1_phase2(page, sf_big=10.0, n_wide=2_000_000, device="cuda"):
     """The fused-Q1 kernel against its plain version: (a) the SF 1 page of
-    the benchmark path, (b) SF `sf_big`'s lineitem generated on the card,
-    (c) a count below capacity and a cutoff (1995-01-01) that empties the
-    open groups, (d) `n_wide` rows with prices near 2^31 - 1, most in one
-    group, whose sum of charge passes 2^63, held also to Python-int totals."""
+    the benchmark path (and, on the card, q1_one_launch_in_child), (b) SF `sf_big`'s
+    lineitem generated on the card, (c) a count below capacity and a cutoff
+    (1995-01-01) that empties the open groups, (d) `n_wide` rows with
+    prices near 2^31 - 1, most in one group, whose sum of charge passes
+    2^63, held also to Python-int totals, (e) the Q1_EDGES cases cut from
+    the SF 1 page (the unaligned ones must take the one-row loads)."""
     import numpy as np
     import torch
 
@@ -1234,6 +1309,8 @@ def q1_phase2(page, sf_big=10.0, n_wide=2_000_000, device="cuda"):
 
     cols = [page.block(c).data for c in handcoded.Q1_COLUMNS]
     results = [q1_kernel_case("q1_sf1_page", cols, page.count, Q1_CUTOFF)]
+    if device == "cuda":
+        q1_one_launch_in_child()
 
     t0 = time.perf_counter()
     big = benchgen.device_page("lineitem", sf_big, handcoded.Q1_COLUMNS, device=device)
@@ -1275,6 +1352,13 @@ def q1_phase2(page, sf_big=10.0, n_wide=2_000_000, device="cuda"):
     wide = [torch.from_numpy(host[k]).to(device)
             for k in ("qty", "price", "disc", "tax", "rf", "ls", "ship")]
     results.append(q1_kernel_case("q1_sum_charge_past_2^63", wide, n, Q1_CUTOFF, exact))
+    del wide
+
+    for name, (ecols, ecount) in q1_edge_cases(cols).items():
+        res = q1_kernel_case(f"q1_{name}", ecols, ecount, Q1_CUTOFF)
+        if res["paired_loads"] == (name in ("unaligned_view", "one_column_unaligned")):
+            raise AssertionError(f"q1_{name}: paired loads {res['paired_loads']}")
+        results.append(res)
     return results
 
 
@@ -1336,15 +1420,18 @@ def check_params_layout():
     """The kernels' parameter structs as the card's build lays them out
     (sizeof, then each field's offset): the group-by kernel's
     GroupbyParams, the join kernels' InsertParams and ProbeParams (with
-    ProbeKey), each against the ctypes struct that packs it."""
+    ProbeKey) and the fused-Q1 kernel's Q1Params, each against the ctypes
+    struct that packs it."""
     import ctypes
 
+    from presto_tpu_torch.ops import agg_kernel as ak
     from presto_tpu_torch.ops import groupby_kernel as gk
     from presto_tpu_torch.ops import join_kernel as jk
 
     want = [ctypes.sizeof(gk.GroupbyParams)] + [
         getattr(gk.GroupbyParams, f).offset for f, _ in gk.GroupbyParams._fields_]
-    layouts = {"GroupbyParams": (gk.params_layout(), want)}
+    layouts = {"GroupbyParams": (gk.params_layout(), want),
+               "Q1Params": (ak.params_layout(), ak.ctypes_layout())}
     for name in ("join_insert", "join_probe"):
         layouts[name] = (jk.params_layout(name), jk.ctypes_layout(name))
     for name, (got, want) in layouts.items():
@@ -1464,7 +1551,8 @@ def main() -> int:
               f"{len([c for c in launch_checks if 'cuda_launch_kernel' in c])} checks"),
         entry("q1_partials", "presto_tpu_torch/csrc/q1_partials.cu",
               "presto_tpu/ops/pallas_agg.py:45", q1_cases[0], q1_cases,
-              "every field of q1_sums against the plain version (integers: exact)"),
+              "every field of q1_sums against the plain version (integers: exact) in "
+              f"{len(q1_cases)} cases; a warm call one launch, no copy or sync"),
     ]
     print("launches per query (first run): " + json.dumps(per_query))
     print(card_line())

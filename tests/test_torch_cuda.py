@@ -2,9 +2,10 @@
 join-probe and fused-Q1 kernels against their plain versions (the groupby
 kernel also at the edges of its regimes and grid, chip_smoke.py's
 GROUPBY_EDGES, and as one launch per call; the first-match join probe as
-one launch, the table build with at most two host reads), and TPC-H
-queries and the
-hand-coded pipelines on "cuda" against the same on "cpu".
+one launch, the table build with at most two host reads; the fused-Q1
+kernel at the edges of its loads and grid, chip_smoke.py's Q1_EDGES, and
+as one launch per call), and TPC-H queries and the hand-coded pipelines
+on "cuda" against the same on "cpu".
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -173,23 +174,55 @@ def test_queries_on_card_equal_cpu(cuda, q):
     assert got == want
 
 
+@pytest.fixture(scope="module")
+def q1_page_sf01():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return handcoded.lineitem_q1_page(0.1, device="cuda")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("count,cutoff", [(None, 10471), (300_000, 9131)])
-def test_q1_kernel_matches_plain(cuda, count, cutoff):
-    """The fused Q1 kernel over device-generated lineitem (SF 0.1), whole
-    and cut by count and by a cutoff that empties the open groups."""
-    page = handcoded.lineitem_q1_page(0.1, device="cuda")
+@pytest.mark.parametrize("case", ["whole", "count_and_cutoff", *chip_smoke.Q1_EDGES])
+def test_q1_kernel_matches_plain(cuda, q1_page_sf01, case):
+    """The fused Q1 kernel over device-generated lineitem (SF 0.1): whole,
+    cut by count and by a cutoff that empties the open groups, and at the
+    edges of its loads and grid (chip_smoke.Q1_EDGES: unaligned columns,
+    a partial last step, fewer rows than a block's step, count 0, count
+    past n)."""
+    page = q1_page_sf01
     cols = [page.block(c).data for c in handcoded.Q1_COLUMNS]
-    n_live = page.count if count is None else torch.tensor(count, dtype=torch.int32, device=cuda)
+    cutoff = 9131 if case == "count_and_cutoff" else 10471
+    if case == "whole":
+        n_live = page.count
+    elif case == "count_and_cutoff":
+        n_live = torch.tensor(300_000, dtype=torch.int32, device=cuda)
+    else:
+        cols, count = chip_smoke.q1_edge_cases(cols)[case]
+        n_live = torch.tensor(count, dtype=torch.int32, device=cuda)
+        assert ak.paired_loads(cols) == (case not in ("unaligned_view", "one_column_unaligned"))
     cut = torch.tensor(cutoff, dtype=torch.int32, device=cuda)
     before = ak.launches
     got = ak.q1_sums(*cols, n_live, cut)
     want = ak.q1_sums_plain(*cols, n_live, cut)
     torch.cuda.synchronize()
     assert ak.launches == before + 1
+    assert set(got) == set(want)
     for k in want:
-        assert torch.equal(got[k], want[k]), k
-    assert (int(got["count"].sum()) < int(n_live)) and (cutoff > 9298 or int(got["count"][1]) == 0)
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    total = int(got["count"].sum())
+    assert total <= min(int(n_live), cols[0].shape[0]) and (total > 0) == (case != "count_0")
+    if case == "count_and_cutoff":
+        assert total < int(n_live) and int(got["count"][1]) == 0
+
+
+@pytest.mark.cuda
+def test_q1_call_is_one_launch_without_copies(cuda, q1_page_sf01):
+    """A warm q1_sums call: one kernel on the device (the fold and the lane
+    normalization inside it) and no copy or stream sync."""
+    cols = [q1_page_sf01.block(c).data for c in handcoded.Q1_COLUMNS]
+    call = (*cols, q1_page_sf01.count, torch.tensor(10471, dtype=torch.int32, device=cuda))
+    res = chip_smoke.one_launch_check("q1_sf01", call, "q1_partials")
+    assert res["launches"] == 1 and res["memcpy"] == 0 and res["stream_syncs"] == 0
 
 
 @pytest.mark.cuda
