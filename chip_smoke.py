@@ -27,6 +27,20 @@ launched the group-by kernel, that join_insert launched on each join query and
 join_probe on Q3, Q17 and Q18 (on both catalogs; on the device catalog
 the reached Q18 in its place), and that q1_local_kernel, and only it,
 launched the fused-Q1 kernel, once a run.
+Then this slice's two phase-3 paths, on the same SF 1 session: `tpch22`,
+all 22 TPC-H queries and a Q20 variant (Q20 selects nothing over this
+generator, see q20_variant) each held against the same query through the
+port on the CPU over the same host tables (doubles within the tolerance
+of presto_tpu/testing/oracle.py, copied in row_diff; everything else
+exactly), with rows, kernel launches, cold and warm wall and the CPU's
+time per query; and `analytic`, windows over all of lineitem (W1) and
+orders (W2) and over an aggregate of two joins (W3), INTERSECT and EXCEPT
+(S1), ROLLUP with grouping() (R1), stddev/variance/skewness (M1) and
+TABLESAMPLE BERNOULLI (T1, its count from the plan's seed through a
+numpy splitmix64), each held against an independent numpy computation.
+Both paths must launch kernels 1-3. One warm run of each of their
+queries is then traced (device busy time, idle share, launches,
+device-to-host reads).
 Phase 2 holds each kernel against its plain PyTorch version on the card:
 the group-by kernel at Q1's, Q5's and Q18's (hash-slot) calls, two wider
 G 64 cases and the edges of its regimes and grid (GROUPBY_EDGES), and
@@ -51,7 +65,9 @@ totals), and at the edges of its loads and grid (Q1_EDGES: unaligned
 columns, a partial last step, fewer rows than a block's step, count 0,
 count past n), each call raising the launch count by one. It times the kernel, the plain
 version, one PyTorch library call where one computes the same function,
-and the byte bound.
+and the byte bound. The torch.profiler checks of phase 2 (one launch, no
+copy or synchronise) are gathered with their inputs and made together
+in one new process (`launch_checks_in_child`).
 It prints the card's name and power limit, a `{"kernels": [...]}` JSON
 line, and last `{"ok": true, "device": {...}}`. Any failed phase exits
 nonzero. With --profile it also traces one warm Q1, Q6, Q3, Q5 and Q18
@@ -103,28 +119,35 @@ def _count_events(events, pred):
     return sum(e.count for e in events if pred(e))
 
 
+def _complete(events):
+    """Whether a traced window holds a device record for every launch and
+    copy: torch.profiler at times drops device records (a kernel, a
+    copy), so a window with fewer device kernels than cudaLaunchKernel
+    calls, or fewer device copies than cudaMemcpy calls, is incomplete."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    copies = _count_events(events, lambda e: e.device_type == cuda and "Memcpy" in e.key)
+    kernels = _count_events(events, lambda e: e.device_type == cuda
+                            and "Memcpy" not in e.key and "Memset" not in e.key)
+    return (kernels >= _count_events(events, lambda e: e.key in _LAUNCH_KEYS)
+            and copies >= _count_events(events, lambda e: e.key in _MEMCPY_KEYS))
+
+
 def _trace(fn, counter, tries=3):
     """(key_averages, fn's result, the increase of counter()) of one call
-    of fn under torch.profiler, synchronised. The profiler at times drops
-    the last device records of a window (a kernel, a copy); a window with
-    fewer device kernels than cudaLaunchKernel calls, or fewer device
-    copies than cudaMemcpy calls, is incomplete and is traced again, at
-    most `tries` times in all."""
+    of fn under torch.profiler, synchronised; an incomplete window
+    (_complete) is traced again, at most `tries` times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = torch.autograd.DeviceType.CUDA
     for _ in range(tries):
         before = counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        copies = _count_events(events, lambda e: e.device_type == cuda and "Memcpy" in e.key)
-        kernels = _count_events(events, lambda e: e.device_type == cuda
-                                and "Memcpy" not in e.key and "Memset" not in e.key)
-        if (kernels >= _count_events(events, lambda e: e.key in _LAUNCH_KEYS)
-                and copies >= _count_events(events, lambda e: e.key in _MEMCPY_KEYS)):
+        if _complete(events):
             break
     return events, out, counter() - before
 
@@ -147,11 +170,12 @@ def f64_tol(call):
     return 1e-12 * mag + 1e-9
 
 
-def kernel_case(name, call, tol_fn, expect=None, one_launch=False):
+def kernel_case(name, call, tol_fn, expect=None, checks=None):
     """Compare groupby_totals (kernel) with groupby_totals_plain on one
     call's inputs; `expect` may hold the "register" regime (True/False)
-    and "blocks" the launch must take; `one_launch` adds
-    one_launch_check. Returns a result dict."""
+    and "blocks" the launch must take; a `checks` list gathers this
+    call's one_launch_check (see launch_checks_in_child). Returns a
+    result dict."""
     import torch
 
     from presto_tpu_torch.ops import groupby_kernel as gk
@@ -201,8 +225,8 @@ def kernel_case(name, call, tol_fn, expect=None, one_launch=False):
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bytes": nbytes,
     }
     print("phase2", json.dumps(res), flush=True)
-    if one_launch:
-        one_launch_check(name, call)
+    if checks is not None:
+        checks.append(("one_launch", name, (call,)))
     return res
 
 
@@ -324,13 +348,13 @@ def groupby_edge_cases(dev, n_big=1_000_000):
     return cases
 
 
-def phase2(q1_call):
+def phase2(q1_call, checks):
     import numpy as np
     import torch
 
     from presto_tpu_torch.ops import groupby_kernel as gk
 
-    results = [kernel_case("q1_sf1", q1_call, exact, {"register": True}, one_launch=True)]
+    results = [kernel_case("q1_sf1", q1_call, exact, {"register": True}, checks=checks)]
     rng = np.random.default_rng(7)
     n = 6_000_859
     dev = torch.device("cuda")
@@ -427,6 +451,63 @@ def q1_kernel_call(sess, cat):
     return call
 
 
+
+
+# -- row comparison (the port on the card against the port on the CPU, and
+# the port against the JAX package in the tests) --------------------------
+
+
+def _value_close(a, b, tol=1e-6):
+    """presto_tpu/testing/oracle.py's tolerance for two doubles, copied:
+    an absolute 1e-6 or a relative 1e-9, whichever is larger."""
+    return abs(a - b) <= max(tol, 1e-9 * max(abs(a), abs(b)))
+
+
+def _row_key(row):
+    from decimal import Decimal
+
+    out = []
+    for v in row:
+        if v is None:
+            out.append((0, ""))
+        elif isinstance(v, (int, float, Decimal)):
+            out.append((1, round(float(v), 4)))
+        else:
+            out.append((2, str(v)))
+    return tuple(out)
+
+
+def row_diff(got, want, ordered=True):
+    """None when the rows agree, else the first difference: doubles within
+    the oracle's tolerance, every other value (integers, decimals, dates,
+    strings, NULL) exactly and of the same Python type. Unordered rows are
+    sorted first."""
+    import math
+
+    if not ordered:
+        got, want = sorted(got, key=_row_key), sorted(want, key=_row_key)
+    if len(got) != len(want):
+        return f"{len(got)} rows != {len(want)}: {got[:3]} / {want[:3]}"
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g) != len(w):
+            return f"row {i}: {g} != {w}"
+        for a, b in zip(g, w):
+            if isinstance(a, float) and isinstance(b, float):
+                if (math.isnan(a) and math.isnan(b)) or _value_close(a, b):
+                    continue
+            elif type(a) is type(b) and a == b:
+                continue
+            return f"row {i}: {g} != {w}"
+    return None
+
+
+def q20_variant(text):
+    """TPC-H Q20 with `p_name like '%forest%'`: the generator draws
+    p_name's first word from the first 24 colours, which do not hold
+    'forest', so Q20 itself selects no part at any scale factor (and no
+    widening of its date range can change that)."""
+    assert "'forest%'" in text
+    return text.replace("'forest%'", "'%forest%'")
 
 
 # -- independent numpy computations of the join queries ---------------------
@@ -601,11 +682,11 @@ def make_session(sf=1.0, device="cuda"):
 
     t0 = time.perf_counter()
     cat = TpchCatalog(sf, device=device)
-    for name in TPCH_TABLES:
+    for name in TPCH_TABLES + ("partsupp",):
         cat.page(name)
     if device == "cuda":
         torch.cuda.synchronize()
-    print(f"tables {TPCH_TABLES} generated+uploaded in {time.perf_counter() - t0:.3f} s "
+    print(f"tables {TPCH_TABLES + ('partsupp',)} generated+uploaded in {time.perf_counter() - t0:.3f} s "
           f"(lineitem rows={cat.exact_row_count('lineitem')})", flush=True)
     return Session(cat, device=device), cat
 
@@ -651,6 +732,393 @@ def run_path(sess, expect, runs=3, texts=None):
                      "result_rows": len(rows), "launches": per_query[q]}
         print(f"phase3 {label}", json.dumps(report[q]), flush=True)
     return report, per_query
+
+
+# -- phase 3: all 22 TPC-H queries, and the analytic set --------------------
+
+# the analytic set: windows, set operations, grouping sets, moments and
+# TABLESAMPLE at full SF 1, each held against an independent numpy
+# computation over the host tables (ANALYTIC_CHECKS)
+W_SPEC = "partition by l_orderkey order by l_extendedprice desc, l_linenumber"
+O_SPEC = "partition by o_custkey order by o_orderdate, o_orderkey"
+S1_SQL = ("select c_custkey from customer where c_mktsegment = 'BUILDING' {op} "
+          "select o_custkey from orders where o_orderdate >= date '1995-01-01' "
+          "and o_orderdate < date '1996-01-01'")
+ANALYTIC_SQL = {
+    "W1": (f"select l_orderkey, l_linenumber, row_number() over ({W_SPEC}) rn, "
+           f"rank() over ({W_SPEC}) rk, sum(l_quantity) over ({W_SPEC}) s from lineitem"),
+    "W2": (f"select o_orderkey, sum(o_totalprice) over ({O_SPEC} rows between 2 preceding "
+           f"and current row) s3, lag(o_totalprice) over ({O_SPEC}) prev from orders"),
+    # a window over an aggregate over two joins (kernels 1-3 on this path)
+    "W3": ("select n_name, o_orderpriority, c, rank() over (partition by n_name order by c desc) "
+           "rk from (select n_name, o_orderpriority, count(*) c from orders "
+           "join customer on o_custkey = c_custkey join nation on c_nationkey = n_nationkey "
+           "group by n_name, o_orderpriority) t"),
+    "S1_intersect": S1_SQL.format(op="intersect"),
+    "S1_except": S1_SQL.format(op="except"),
+    "R1": ("select l_returnflag, l_linestatus, grouping(l_returnflag, l_linestatus) g, "
+           "sum(l_quantity) q, count(*) c from lineitem "
+           "group by rollup(l_returnflag, l_linestatus)"),
+    "M1": ("select l_returnflag, stddev(l_extendedprice) sd, variance(l_discount) vr, "
+           "skewness(l_quantity) sk from lineitem group by l_returnflag"),
+    "T1": "select count(*) c, sum(l_quantity) q from lineitem tablesample bernoulli (10)",
+}
+# the queries whose whole result is checked as columns (millions of rows),
+# with the columns that order their rows
+COLUMN_RESULTS = {"W1": ("l_orderkey", "l_linenumber"), "W2": ("o_orderkey",)}
+T1_SEED = 20261017  # seeds Python's `random`, which draws the plan's sample seed
+
+
+def host_columns(page):
+    """{name: (data, valid or None)} of a page's live rows on the host;
+    decimal(38) lanes joined into int64 values."""
+    import numpy as np
+
+    from presto_tpu_torch.page import to_numpy
+
+    n = int(page.count)
+    out = {}
+    for name, b in zip(page.names, page.blocks):
+        data = to_numpy(b.data[:n])
+        if data.ndim == 2:
+            data = data[:, 0].astype(np.int64) * (1 << 32) + data[:, 1]
+        out[name] = (data, None if b.valid is None else to_numpy(b.valid[:n]))
+    return out
+
+
+def sample_seed(sess, sql):
+    """The seed the planner draws for the query's Sample node after
+    random.seed(T1_SEED)."""
+    import random
+
+    from presto_tpu_torch.plan import nodes as N
+
+    random.seed(T1_SEED)
+    node = sess.plan(sql)
+    while not isinstance(node, N.Sample):
+        node = node.children[0]
+    return node.seed
+
+
+def run_analytic(sess, name):
+    """One run of an analytic query: its result on the host (columns or
+    rows). T1 reseeds `random` first, so every run samples the same rows."""
+    import random
+
+    if name == "T1":
+        random.seed(T1_SEED)
+    res = sess.query(ANALYTIC_SQL[name])
+    return host_columns(res.page) if name in COLUMN_RESULTS else res.rows()
+
+
+def _partition_starts(keys):
+    import numpy as np
+
+    start = np.r_[True, keys[1:] != keys[:-1]]
+    pos = np.arange(len(keys))
+    return start, np.maximum.accumulate(np.where(start, pos, 0))
+
+
+def numpy_w1(t):
+    import numpy as np
+
+    li = t["lineitem"].columns
+    ok, ln = li["l_orderkey"].data, li["l_linenumber"].data
+    order = np.lexsort((ln, -li["l_extendedprice"].data, ok))
+    q = li["l_quantity"].data[order]
+    _, first = _partition_starts(ok[order])
+    rn = np.arange(len(order)) - first + 1
+    c = np.cumsum(q)
+    # (price, linenumber) has no ties within an order: rank is row_number,
+    # and the default RANGE frame ends at the current row
+    return {"l_orderkey": ok[order], "l_linenumber": ln[order], "rn": rn, "rk": rn,
+            "s": c - (c - q)[first]}
+
+
+def numpy_w2(t):
+    import numpy as np
+
+    o = t["orders"].columns
+    cust, ok = o["o_custkey"].data, o["o_orderkey"].data
+    order = np.lexsort((ok, o["o_orderdate"].data, cust))
+    x, cs = o["o_totalprice"].data[order], cust[order]
+    p1 = np.r_[False, cs[1:] == cs[:-1]]
+    p2 = np.r_[False, False, cs[2:] == cs[:-2]]
+    x1 = np.r_[0, x[:-1]]
+    x2 = np.r_[0, 0, x[:-2]]
+    return {"o_orderkey": ok[order], "s3": x + np.where(p1, x1, 0) + np.where(p2, x2, 0),
+            "prev": (np.where(p1, x1, 0), p1)}
+
+
+def numpy_w3(t):
+    import numpy as np
+
+    o, c, n = t["orders"].columns, t["customer"].columns, t["nation"].columns
+    cnat = c["c_nationkey"].data[_lookup(c["c_custkey"].data)[o["o_custkey"].data]]
+    pr = o["o_orderpriority"]
+    counts = np.zeros((int(cnat.max()) + 1, len(pr.dictionary)), np.int64)
+    np.add.at(counts, (cnat, pr.data), 1)
+    names = n["n_name"]
+    nrow = _lookup(n["n_nationkey"].data)
+    rows = []
+    for nk in range(counts.shape[0]):
+        for p in np.nonzero(counts[nk])[0]:
+            cnt = counts[nk, p]
+            rows.append((names.dictionary[names.data[nrow[nk]]], pr.dictionary[p], int(cnt),
+                         int((counts[nk] > cnt).sum()) + 1))
+    return rows
+
+
+def numpy_s1(t, op):
+    import numpy as np
+
+    c, o = t["customer"].columns, t["orders"].columns
+    seg = c["c_mktsegment"]
+    building = set(c["c_custkey"].data[seg.data == _code(seg, "BUILDING")].tolist())
+    d = o["o_orderdate"].data
+    in95 = set(o["o_custkey"].data[(d >= _days(1995, 1, 1)) & (d < _days(1996, 1, 1))].tolist())
+    keys = building & in95 if op == "intersect" else building - in95
+    return [(int(k),) for k in sorted(keys)]
+
+
+def numpy_r1(t):
+    from decimal import Decimal
+
+    import numpy as np
+
+    li = t["lineitem"].columns
+    rf, ls, q = li["l_returnflag"], li["l_linestatus"], li["l_quantity"].data
+    rows = []
+    for a in np.unique(rf.data):
+        m = rf.data == a
+        for b in np.unique(ls.data[m]):
+            mm = m & (ls.data == b)
+            rows.append((rf.dictionary[a], ls.dictionary[b], 0,
+                         Decimal(int(q[mm].sum())).scaleb(-2), int(mm.sum())))
+        rows.append((rf.dictionary[a], None, 1, Decimal(int(q[m].sum())).scaleb(-2),
+                     int(m.sum())))
+    rows.append((None, None, 3, Decimal(int(q.sum())).scaleb(-2), len(q)))
+    return rows
+
+
+def numpy_m1(t):
+    import numpy as np
+
+    li = t["lineitem"].columns
+    rf = li["l_returnflag"]
+    rows = []
+    for a in np.unique(rf.data):
+        m = rf.data == a
+        x = li["l_extendedprice"].data[m] / 100.0
+        y = li["l_discount"].data[m] / 100.0
+        z = li["l_quantity"].data[m] / 100.0
+        d = z - z.mean()
+        skew = np.sqrt(len(z)) * (d**3).sum() / (d**2).sum() ** 1.5
+        rows.append((rf.dictionary[a], float(np.std(x, ddof=1)), float(np.var(y, ddof=1)),
+                     float(skew)))
+    return rows
+
+
+def numpy_sample_mask(capacity, fraction, seed, offset=0):
+    """ops/filter.py sample_page's mask in numpy uint64: splitmix64 of
+    (position + offset + seed), kept below `fraction`."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        z = (np.arange(capacity, dtype=np.uint64) + np.uint64(offset)
+             + np.uint64(seed)) * np.uint64(0x9E3779B97F4A7C15)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        z = z ^ (z >> np.uint64(31))
+    return (z >> np.uint64(11)).astype(np.float64) * (1.0 / (1 << 53)) < fraction
+
+
+def numpy_t1(t, seed, capacity):
+    from decimal import Decimal
+
+    q = t["lineitem"].columns["l_quantity"].data
+    keep = numpy_sample_mask(capacity, 0.1, seed)[:len(q)]
+    return [(int(keep.sum()), Decimal(int(q[keep].sum())).scaleb(-2))]
+
+
+def _column_diff(got, want, sort_by):
+    """None, or the first column of `got` (host_columns) that differs from
+    the numpy arrays `want` (name -> data, or (data, valid)), both ordered
+    by the `sort_by` columns."""
+    import numpy as np
+
+    want = {k: w if isinstance(w, tuple) else (w, None) for k, w in want.items()}
+    order = np.lexsort(tuple(got[c][0] for c in reversed(sort_by)))
+    ref_order = np.lexsort(tuple(want[c][0] for c in reversed(sort_by)))
+    for name, (wd, wv) in want.items():
+        data, valid = got[name]
+        data, wd = data[order], wd[ref_order]
+        valid = np.ones(len(data), bool) if valid is None else valid[order]
+        wv = np.ones(len(wd), bool) if wv is None else wv[ref_order]
+        if len(data) != len(wd) or not np.array_equal(valid, wv) or not np.array_equal(
+                data[valid], wd[wv]):
+            return f"column {name} differs"
+    return None
+
+
+def result_diff(name, got, want):
+    """None when two results of analytic query `name` (run_analytic) agree."""
+    if name in COLUMN_RESULTS:
+        return _column_diff(got, want, COLUMN_RESULTS[name])
+    return row_diff(got, want, ordered=False)
+
+
+def analytic_checks(tables, sess):
+    """{name: function(result) -> None or the first difference}."""
+    capacity = sess.catalog.page("lineitem").capacity
+    t1 = numpy_t1(tables, sample_seed(sess, ANALYTIC_SQL["T1"]), capacity)
+    want = {"W3": numpy_w3(tables), "S1_intersect": numpy_s1(tables, "intersect"),
+            "S1_except": numpy_s1(tables, "except"), "R1": numpy_r1(tables),
+            "M1": numpy_m1(tables), "T1": t1}
+    w1, w2 = numpy_w1(tables), numpy_w2(tables)
+    checks = {"W1": lambda got: _column_diff(got, w1, COLUMN_RESULTS["W1"]),
+              "W2": lambda got: _column_diff(got, w2, COLUMN_RESULTS["W2"])}
+    for name, rows in want.items():
+        checks[name] = lambda got, rows=rows: row_diff(got, rows, ordered=False)
+    return checks
+
+
+def profile_one(fn, warm_ms, tries=3):
+    """One warm call of fn under torch.profiler: (summary, key_averages).
+    The summary holds device busy ms, its idle share of the unprofiled warm
+    wall `warm_ms`, device launches, device-to-host copies (each a host
+    read), host-to-device copies, CPU-side stream synchronises (less the
+    one that closes the window), our kernels' device ms, and whether the
+    window was complete (_complete; an incomplete one is traced again, at
+    most `tries` times in all)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        events = prof.key_averages()
+        complete = _complete(events)
+        if complete:
+            break
+    # device-side events only (kernels, copies): the CPU-side aten ops
+    # also report the device time of the kernels they launched
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    busy_ms = sum(dev_us(e) for e in device) / 1e3
+    top = sorted(device, key=dev_us, reverse=True)[:8]
+    ours = {k: sum(dev_us(e) for e in device if k in e.key) / 1e3
+            for k in ("groupby_tile_kernel", "groupby_atomic_kernel", "join_insert_kernel",
+                      "join_probe_kernel", "q1_partials_kernel")}
+    syncs = sum(e.count for e in events
+                if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    return {
+        "complete": complete, "profiled_wall_ms": wall_ms, "warm_wall_ms": warm_ms,
+        "device_busy_ms": busy_ms, "idle_share_of_warm_wall": 1.0 - busy_ms / warm_ms,
+        "device_launches": sum(e.count for e in device),
+        "host_syncs": sum(e.count for e in device if "DtoH" in e.key),
+        "htod_copies": sum(e.count for e in device if "HtoD" in e.key),
+        "stream_syncs": syncs - 1,
+        "our_kernels_device_ms": ours,
+        "top_device_ms": {e.key[:70]: dev_us(e) / 1e3 for e in top},
+    }, events
+
+
+def _timed_runs(fn, runs, check, label):
+    """fn() `runs` times (cold, then warm), each result checked; returns
+    (cold ms, best warm ms, our kernels' launches in the first run, the
+    last result)."""
+    walls = []
+    for i in range(runs):
+        before = _counts()
+        t = time.perf_counter()
+        out = fn()
+        walls.append(time.perf_counter() - t)
+        if i == 0:
+            launches = {k: v - before[k] for k, v in _counts().items() if k != "q1_partials"}
+        diff = check(out)
+        if diff is not None:
+            raise AssertionError(f"{label}: {diff}")
+    return walls[0] * 1e3, min(walls[1:]) * 1e3, launches, out
+
+
+def tpch22_texts():
+    """{label: SQL} of the `tpch22` path: Q1-Q22 and the Q20 variant."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+
+    texts = {f"Q{q}": QUERIES[q] for q in range(1, 23)}
+    texts["Q20_variant"] = q20_variant(QUERIES[20])
+    return texts
+
+
+def tpch22_path(sess, cpu_sess, runs=3):
+    """All 22 TPC-H queries and the Q20 variant through Session.query on
+    the card, each held against the same query through the port on the
+    CPU over the same generated tables. Q20 returns no rows over this
+    generator (q20_variant), and must do so on both devices; its variant
+    must return rows. Returns {label: report}."""
+    report = {}
+    for label, text in tpch22_texts().items():
+        t = time.perf_counter()
+        want = cpu_sess.query(text).rows()
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        cold, warm, launches, rows = _timed_runs(
+            lambda: sess.query(text).rows(), runs, lambda got: row_diff(got, want),
+            f"{label} on the card against the CPU")
+        if (len(rows) == 0) != (label == "Q20"):
+            raise AssertionError(f"{label} returned {len(rows)} rows")
+        report[label] = {"result_rows": len(rows), "launches": launches, "cold_ms": cold,
+                         "warm_ms": warm, "cpu_ms": cpu_ms}
+        print(f"phase3 tpch22 {label}", json.dumps(report[label]), flush=True)
+    print("phase3 tpch22 Q20 returns no rows over this generator at SF 1 on the card and "
+          "on the CPU (p_name never starts with 'forest'); its variant "
+          f"(p_name like '%forest%') returned {report['Q20_variant']['result_rows']} rows, "
+          "equal to the CPU's", flush=True)
+    return report
+
+
+def analytic_path(sess, tables, runs=3):
+    """The analytic set (ANALYTIC_SQL) through Session.query on the card,
+    each held against its numpy computation. Returns {name: report}."""
+    t0 = time.perf_counter()
+    checks = analytic_checks(tables, sess)
+    print(f"phase3 analytic numpy checks computed in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    report = {}
+    for name in ANALYTIC_SQL:
+        cold, warm, launches, out = _timed_runs(
+            lambda: run_analytic(sess, name), runs, checks[name], f"{name} against numpy")
+        if name in COLUMN_RESULTS:
+            n = len(next(iter(out.values()))[0])
+            shown = {k: [v.item() for v in d[:3]] for k, (d, _v) in out.items()}
+        else:
+            n, shown = len(out), [tuple(str(v) for v in r) for r in out[:8]]
+        report[name] = {"result_rows": n, "rows": shown, "launches": launches,
+                        "cold_ms": cold, "warm_ms": warm}
+    return report
+
+
+def trace_paths(sess, tpch22, analytic):
+    """profile_one over one warm run of every query of the two paths: the
+    launches, device-to-host reads and idle share that PERF.md records."""
+    texts = tpch22_texts()
+    for label, rep in tpch22.items():
+        summary, _ = profile_one(lambda: sess.query(texts[label]).rows(), rep["warm_ms"])
+        rep["profile"] = summary
+        print(f"phase3 tpch22 {label} profile", json.dumps(summary), flush=True)
+    for name, rep in analytic.items():
+        summary, _ = profile_one(lambda: run_analytic(sess, name), rep["warm_ms"])
+        rep["profile"] = summary
+        print(f"phase3 analytic {name}", json.dumps(rep), flush=True)
 
 
 # -- phase 3: the benchmark path on device-generated data -------------------
@@ -1048,15 +1516,16 @@ def colliding_keys(n_pairs, dev):
     return cand[order[at]], cand[order[at + 1]]
 
 
-def join_phase2(sess, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
+def join_phase2(sess, checks, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
     """The join kernels against their plain versions: the largest calls
     the four queries make, the top of the table path's range (a build of
     n_max rows, TABLE_MAX_BUILD by default, probed by m_max rows), a skewed
     key with colliding tags, varchar keys in two dictionaries, a composite
     key, a float64 key with -0.0 and NaN and a long-decimal key (n_small
-    build rows each), and the host work of `_probe_n1` and `build_table`.
-    Returns (insert results, probe results, launch checks, group-by results
-    at Q18's hash-slot call and Q5's dense call)."""
+    build rows each), and the host work of `_probe_n1` and `build_table`,
+    whose profiler checks `checks` gathers. Returns (insert results, probe
+    results, group-by results at Q18's hash-slot call and Q5's dense
+    call)."""
     import numpy as np
     import torch
 
@@ -1070,18 +1539,18 @@ def join_phase2(sess, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
     # call (revenue by nation, G 25)
     (call,) = rec["q18_totals"]
     groupby = [kernel_case("q18_hash_slot", call, exact, {"register": False, "blocks": 1},
-                           one_launch=True)]
+                           checks=checks)]
     (call,) = rec["q5_totals"]
-    groupby.append(kernel_case("q5_dense", call, exact, {"register": True}, one_launch=True))
+    groupby.append(kernel_case("q5_dense", call, exact, {"register": True}, checks=checks))
     print(f"phase2 largest build: Q{q_ins} n={h.shape[0]} live={n_live} bits={bits}; largest "
           f"n1 probe: Q{q_pr} m={ph.shape[0]} live={int(plive.sum())} table slots="
           f"{jt.slots.shape[0]}", flush=True)
     inserts = [insert_case(f"largest_build_q{q_ins}", h, live, bits)[0]]
     probes = [probe_case(f"largest_probe_q{q_pr}", jt.slots, ph, plive, jt.bits, prep)]
-    checks = [probe_launch_check(f"largest_probe_q{q_pr}", jt, ph, plive, prep)]
+    checks.append(("probe", f"largest_probe_q{q_pr}", (jt, ph, plive, prep)))
     rng = np.random.default_rng(11)
     nq = h.shape[0]
-    # build_table's host work, checked last (after every one-launch check)
+    # build_table's host work
     builds = [(f"build_{nq}_rows", _page({"k": (rng.permutation(nq).astype(np.int64) * 7 + 3,
                                                 "bigint", None, None)}, dev),
                (_key("k", "bigint"),))]
@@ -1094,7 +1563,7 @@ def join_phase2(sess, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
     big = join_case("max_build_4M", {"k": (keys, "bigint", None, None)},
                     {"k": (pkeys, "bigint", None, None)}, [("k", "bigint")], dev, inserts,
                     probes, cpu_check=False, probe_name="probe_6M_half_match")
-    checks.append(probe_launch_check("probe_6M_half_match", *big))
+    checks.append(("probe", "probe_6M_half_match", big))
     del big
 
     # skew: one key repeated ~1,000 times among n_small rows (rows overflow,
@@ -1154,8 +1623,8 @@ def join_phase2(sess, dev="cuda", n_max=None, m_max=6_000_859, n_small=100_000):
               {"k": (plan, "decimal(38,2)", None, None)}, [("k", "decimal(38,2)")], dev,
               inserts, probes)
 
-    checks += [build_check(*args) for args in builds]
-    return inserts, probes, checks, groupby
+    checks += [("build", name, (page, keys)) for name, page, keys in builds]
+    return inserts, probes, groupby
 
 
 def _key(name, typ):
@@ -1263,40 +1732,57 @@ def q1_edge_cases(cols):
     return cases
 
 
-def q1_one_launch(sf=1.0):
-    """one_launch_check of a warm q1_sums call over lineitem's Q1 page at
-    SF `sf`, generated on the card."""
+# -- the profiler checks, made in a new process ---------------------------
+
+
+def run_launch_checks(path):
+    """Load the (kind, name, args) checks `path` holds and make each one:
+    one_launch_check, probe_launch_check or build_check."""
     import torch
 
-    from presto_tpu_torch.benchmark import handcoded
-
-    page = handcoded.lineitem_q1_page(sf, device="cuda")
-    cols = [page.block(c).data for c in handcoded.Q1_COLUMNS]
-    cutoff = torch.tensor(Q1_CUTOFF, dtype=torch.int32, device="cuda")
-    return one_launch_check(f"q1_sf{sf:g}_page", (*cols, page.count, cutoff), "q1_partials")
+    fns = {"one_launch": one_launch_check, "probe": probe_launch_check, "build": build_check}
+    for kind, name, args in torch.load(path, weights_only=False):
+        fns[kind](name, *args)
 
 
-def q1_one_launch_in_child():
-    """q1_one_launch in a new process. In a process that has run the main
-    paths and the phase-2 cases, torch.profiler on the card has lost the
-    device record of every window of this check (three tries), while
-    fresh processes delivered it."""
+def launch_checks_in_child(checks):
+    """The profiler checks gathered in phase 2, made in one new process on
+    their saved inputs; their lines are relayed and returned parsed, each
+    with its "check" (one_launch, probe_one_launch or build_check). After
+    this script's paths, torch.profiler (torch 2.11 on an NVIDIA H100 80GB
+    HBM3) returned 13 of 20 one-kernel windows without the kernel's
+    device record, padded or not, while a new process returned all 40
+    with it (presto_tpu_torch/benchmark/profwindows.py)."""
     import os
+    import tempfile
 
-    out = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.q1_one_launch()"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-        timeout=600)
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "launch_checks.pt")
+        torch.save(checks, path)
+        out = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.run_launch_checks({path!r})"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=300)
+    results = []
     for line in out.stdout.splitlines():
         if line.startswith("phase2"):
             print(line, flush=True)
+            results.append({"check": line.split()[1], **json.loads(line[line.index("{"):])})
     if out.returncode != 0:
-        raise AssertionError(f"q1_one_launch failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        raise AssertionError(f"a launch check failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    if len(results) != len(checks):
+        raise AssertionError(f"{len(checks)} launch checks gathered, {len(results)} made")
+    print(f"phase2 {len(results)} launch checks made in a new process in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return results
 
 
-def q1_phase2(page, sf_big=10.0, n_wide=2_000_000, device="cuda"):
+def q1_phase2(page, checks, sf_big=10.0, n_wide=2_000_000, device="cuda"):
     """The fused-Q1 kernel against its plain version: (a) the SF 1 page of
-    the benchmark path (and, on the card, q1_one_launch_in_child), (b) SF `sf_big`'s
+    the benchmark path (whose one_launch_check `checks` gathers), (b) SF `sf_big`'s
     lineitem generated on the card, (c) a count below capacity and a cutoff
     (1995-01-01) that empties the open groups, (d) `n_wide` rows with
     prices near 2^31 - 1, most in one group, whose sum of charge passes
@@ -1309,8 +1795,8 @@ def q1_phase2(page, sf_big=10.0, n_wide=2_000_000, device="cuda"):
 
     cols = [page.block(c).data for c in handcoded.Q1_COLUMNS]
     results = [q1_kernel_case("q1_sf1_page", cols, page.count, Q1_CUTOFF)]
-    if device == "cuda":
-        q1_one_launch_in_child()
+    cutoff = torch.tensor(Q1_CUTOFF, dtype=torch.int32, device=device)
+    checks.append(("one_launch", "q1_sf1_page", ((*cols, page.count, cutoff), "q1_partials")))
 
     t0 = time.perf_counter()
     big = benchgen.device_page("lineitem", sf_big, handcoded.Q1_COLUMNS, device=device)
@@ -1363,55 +1849,15 @@ def q1_phase2(page, sf_big=10.0, n_wide=2_000_000, device="cuda"):
 
 
 def profile_runs(runs, warm_ms, out_dir):
-    """torch.profiler over one warm call of each `runs[label]`: device
-    busy time, its idle share of the unprofiled warm wall time
-    `warm_ms[label]`, the kernels that took the device time, and the host
-    syncs: `host_syncs` counts device-to-host copies (as in PR 3's
-    records), `htod_copies` host-to-device copies, and `stream_syncs` the
-    CPU-side cudaStreamSynchronize / cudaDeviceSynchronize calls, less the
-    one that closes the profiled window. The full table goes to
-    <out_dir>/profile_<label>.txt."""
+    """profile_one over one warm call of each `runs[label]` (its idle share
+    against the unprofiled warm wall `warm_ms[label]`); the full table goes
+    to <out_dir>/profile_<label>.txt."""
     import os
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
     for label, fn in runs.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        events = prof.key_averages()
-        # device-side events only (kernels, copies): the CPU-side aten ops
-        # also report the device time of the kernels they launched
-        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-
-        def dev_us(e):
-            return getattr(e, "self_device_time_total", None) or getattr(
-                e, "self_cuda_time_total", 0)
-
-        busy_ms = sum(dev_us(e) for e in device) / 1e3
-        top = sorted(device, key=dev_us, reverse=True)[:8]
-        ours = {k: sum(dev_us(e) for e in device if k in e.key) / 1e3
-                for k in ("groupby_tile_kernel", "groupby_atomic_kernel", "join_insert_kernel",
-                          "join_probe_kernel", "q1_partials_kernel")}
-        syncs = sum(e.count for e in events
-                    if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
-        print(f"profile {label}", json.dumps({
-            "profiled_wall_ms": wall_ms, "warm_wall_ms": warm_ms[label],
-            "device_busy_ms": busy_ms,
-            "idle_share_of_warm_wall": 1.0 - busy_ms / warm_ms[label],
-            "device_launches": sum(e.count for e in device),
-            "host_syncs": sum(e.count for e in device if "DtoH" in e.key),
-            "htod_copies": sum(e.count for e in device if "HtoD" in e.key),
-            "stream_syncs": syncs - 1,
-            "our_kernels_device_ms": ours,
-            "top_device_ms": {e.key[:70]: dev_us(e) / 1e3 for e in top},
-        }), flush=True)
+        summary, events = profile_one(fn, warm_ms[label])
+        print(f"profile {label}", json.dumps(summary), flush=True)
         with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
             f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
 
@@ -1502,13 +1948,40 @@ def main() -> int:
         if per_query[label]["join_probe"] < 1:
             raise AssertionError(f"{label} did not launch join_probe")
 
+    # phase 3, this slice's paths: all 22 TPC-H queries against the port on
+    # the CPU (the same generated tables, served from host memory), then the
+    # analytic set against numpy; the counts at 0 just before each
+    from presto_tpu_torch.session import Session
+
+    t0 = time.perf_counter()
+    cpu_sess = Session(cat.with_device("cpu"), device="cpu")
+    _zero_counts()
+    tpch22 = tpch22_path(sess, cpu_sess)
+    path_counts["tpch22"] = _counts()
+    del cpu_sess
+    _zero_counts()
+    analytic = analytic_path(sess, tables)
+    path_counts["analytic"] = _counts()
+    print(f"phase3 tpch22 and analytic launches {json.dumps(path_counts['tpch22'])} "
+          f"{json.dumps(path_counts['analytic'])} in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    for path in ("tpch22", "analytic"):
+        for k in ("groupby_partials", "join_insert", "join_probe"):
+            if path_counts[path][k] < 1:
+                raise AssertionError(f"the {path} path did not launch {k}")
+    t0 = time.perf_counter()
+    trace_paths(sess, tpch22, analytic)
+    print(f"phase3 tpch22 and analytic traced in {time.perf_counter() - t0:.3f} s", flush=True)
+
     # phase 2: each kernel against its plain version, at the main paths'
     # shapes and at wider cases
     t0 = time.perf_counter()
-    cases = phase2(q1_kernel_call(sess, cat))
-    inserts, probes, launch_checks, groupby = join_phase2(sess)
+    checks = []
+    cases = phase2(q1_kernel_call(sess, cat), checks)
+    inserts, probes, groupby = join_phase2(sess, checks)
     cases += groupby
-    q1_cases = q1_phase2(q1_page)
+    q1_cases = q1_phase2(q1_page, checks)
+    launch_checks = launch_checks_in_child(checks)
     print(f"phase2 done in {time.perf_counter() - t0:.3f} s", flush=True)
 
     args = sys.argv[1:]
@@ -1548,7 +2021,7 @@ def main() -> int:
               "presto_tpu/ops/pallas_join.py:452", probes[0], probes,
               "matched and build row (first verified match) against the plain version on "
               f"the same table; _probe_n1 one launch, no copy or sync in "
-              f"{len([c for c in launch_checks if 'cuda_launch_kernel' in c])} checks"),
+              f"{sum(c['check'] == 'probe_one_launch' for c in launch_checks)} checks"),
         entry("q1_partials", "presto_tpu_torch/csrc/q1_partials.cu",
               "presto_tpu/ops/pallas_agg.py:45", q1_cases[0], q1_cases,
               "every field of q1_sums against the plain version (integers: exact) in "

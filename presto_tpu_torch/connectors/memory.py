@@ -1,6 +1,6 @@
 """In-memory connector: query device Pages registered at runtime
 (torch package's copy of presto_tpu/connectors/memory.py; CREATE TABLE and
-INSERT, which need ops/union.py, are not ported yet).
+INSERT are not ported yet).
 
 Re-designed equivalent of the reference's memory connector
 (presto-memory/src/main/java/com/facebook/presto/plugin/memory/ —

@@ -580,6 +580,13 @@ class TpchCatalog:
         self._pages: Dict[str, "Page"] = {}
         self._tables: Dict[str, Table] = {}
 
+    def with_device(self, device) -> "TpchCatalog":
+        """A catalog that serves the same generated host tables (shared, not
+        regenerated) as pages on `device`."""
+        twin = TpchCatalog(self.sf, device=device)
+        twin._tables = self._tables
+        return twin
+
     def table_names(self):
         return list(TABLE_NAMES)
 

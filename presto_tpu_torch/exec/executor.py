@@ -14,10 +14,10 @@ and strategy choices match. PyTorch runs eagerly, so the JAX package's jit
 kernel cache is a plain call here, and no breaker stands around a kernel:
 a kernel fault fails the query.
 
-Nodes ported: TableScan, Filter, Project, Aggregate, Distinct, Sort, TopN,
-Limit, Output, SingleRow, Join, SemiJoin, ScalarApply and the
-Exchange/AggFinalize pass-throughs. Any other node raises
-ExecutionError("not ported yet: <node>").
+Nodes ported: TableScan, Sample, Filter, Project, Aggregate, Distinct,
+Window, Sort, TopN, Limit, Union, Output, SingleRow, Join, SemiJoin,
+ScalarApply and the Exchange/AggFinalize pass-throughs. Any other node
+raises ExecutionError("not ported yet: <node>").
 """
 
 from __future__ import annotations
@@ -58,10 +58,19 @@ class Executor:
         # runtime dynamic filters: per-query build-side summaries consumed
         # by probe-side scans and filters
         self.dyn_ctx = DynamicFilterContext()
+        # TABLESAMPLE: a running row offset per Sample node plus a salt,
+        # mixed into the sample hash so a positional mask never repeats
+        # across batches (ops/filter.py sample_page)
+        self._sample_pos: Dict[int, int] = {}
+        self.sample_salt = 0
 
     # -- public --
     def run(self, node: N.PlanNode) -> Page:
-        self.dyn_ctx.reset()  # filters are per-query state
+        # dynamic filters and sample offsets are per-query state (the JAX
+        # package keeps the offsets for the executor's life, keyed by id():
+        # a later query's node can reuse a freed node's id and its offset)
+        self.dyn_ctx.reset()
+        self._sample_pos.clear()
         return self._run(node)
 
     # -- dispatch --
@@ -144,6 +153,16 @@ class Executor:
         if entries:
             page = self._dyn_mask_page(node, page, entries, "scan")
         return page
+
+    def _exec_sample(self, node: N.Sample, page: Page) -> Page:
+        from ..ops.filter import sample_page
+
+        # this page's global row position: the node's running offset,
+        # advanced by capacity (no host read), plus the salt
+        pos = self._sample_pos.get(id(node), 0)
+        self._sample_pos[id(node)] = pos + page.capacity
+        offset = (self.sample_salt + pos) & 0xFFFFFFFFFFFFFFFF
+        return self._shrink(sample_page(page, node.fraction, node.seed, offset), node)
 
     # -- stateless row ops --
     def _exec_filter(self, node: N.Filter, page: Page) -> Page:
@@ -304,7 +323,7 @@ class Executor:
         return self._ps_cache[node]
 
     def _keypack_plan(self, node, keys, page: Page, equality_only=False,
-                      allow_hashed=False):
+                      allow_hashed=False, single_lane=False, n_order_keys=0):
         """A packing strategy for one order-sensitive node from the input
         page's blocks plus the child's CBO column stats, or None when the
         keys don't pack (the node runs its legacy sort)."""
@@ -331,7 +350,8 @@ class Executor:
             else:
                 infos.append(KeyInfo(type=typ, nullable=True))
         return plan_keypack(keys, infos, equality_only=equality_only,
-                            allow_hashed=allow_hashed)
+                            allow_hashed=allow_hashed, single_lane=single_lane,
+                            n_order_keys=n_order_keys)
 
     @staticmethod
     def _run_packed(fn, page: Page):
@@ -342,6 +362,22 @@ class Executor:
         if ok is not None and not bool(ok):
             return None
         return out
+
+    # -- windows --
+    def _exec_window(self, node: N.Window, page: Page) -> Page:
+        from ..ops.sort import SortKey
+        from ..ops.window import window_op, window_op_packed
+
+        specs = tuple(SortKey(e) for e in node.partition_exprs) + tuple(node.order_keys)
+        plan = self._keypack_plan(node, specs, page, single_lane=True,
+                                  n_order_keys=len(node.order_keys)) if specs else None
+        if plan is not None:
+            out = self._run_packed(
+                lambda p: window_op_packed(p, node.partition_exprs, node.order_keys,
+                                           node.funcs, plan), page)
+            if out is not None:
+                return out
+        return window_op(page, node.partition_exprs, node.order_keys, node.funcs)
 
     # -- ordering / limits --
     def _exec_sort(self, node: N.Sort, page: Page) -> Page:
@@ -368,6 +404,12 @@ class Executor:
 
     def _exec_limit(self, node: N.Limit, page: Page) -> Page:
         return self._shrink(limit_page(page, node.count), node)
+
+    def _exec_union(self, node: N.Union, *pages: Page) -> Page:
+        from ..ops.union import concat_pages
+
+        # positional union: the output's names follow the first branch
+        return self._shrink(concat_pages(pages, distinct=node.distinct), node)
 
     # -- joins --
     def _star_spec(self, node: N.PlanNode) -> Optional[N.Join]:

@@ -864,6 +864,39 @@ def _ends_with(a: Val, suffix: Val, out_type: T.Type) -> Val:
     return _dict_predicate(a, lambda s: s.endswith(p))
 
 
+def _map_infer_element(ts):
+    if isinstance(ts[0], T.MapType):
+        return ts[0].value
+    return ts[0].element
+
+
+@register("element_at", _map_infer_element)
+def _element_at(a: Val, idx: Val, out_type: T.Type) -> Val:
+    """1-based access into an array; negative indexes count from the end;
+    out of range -> NULL (element_at's forgiving semantics). The MAP form
+    (key lookup) is not ported yet."""
+    if isinstance(a.type, T.MapType):
+        raise NotPortedError("not ported yet: element_at over a map")
+    if a.lengths is None and a.data.ndim != 2:
+        raise TypeError("element_at requires an array value")
+    i64 = idx.data.to(torch.int64)
+    if a.lengths is None:
+        # a fixed-width array with no per-row lengths: every lane is live
+        lens = torch.full(a.data.shape[:1], a.data.shape[1], dtype=torch.int64,
+                          device=a.device)
+    else:
+        lens = a.lengths.to(torch.int64)
+    pos = torch.where(i64 < 0, lens + i64, i64 - 1)
+    in_range = (pos >= 0) & (pos < lens)
+    safe = torch.clamp(pos, 0, max(a.data.shape[1] - 1, 0))
+    data = torch.gather(a.data, 1, safe[:, None])[:, 0]
+    valid = and_valid(a.valid, idx.valid, in_range)
+    if a.elem_valid is not None:
+        ev = torch.gather(a.elem_valid, 1, safe[:, None])[:, 0]
+        valid = and_valid(valid, ev)
+    return Val(data, valid, out_type, a.dict_id)
+
+
 # ---------------------------------------------------------------------------
 # not ported yet: the rest of presto_tpu's registry (expr/functions.py past
 # the sections above, and expr/functions_ext.py)
@@ -880,7 +913,7 @@ bitwise_xor cardinality cauchy_cdf cbrt ceiling char2hexint char_length
 character_length chi_squared_cdf chr classify codepoint color concat_ws
 contains cosine_distance cosine_similarity cot crc32 current_date
 current_timestamp current_timezone date_add date_diff date_format date_parse
-date_trunc e element_at expm1 format_datetime from_base from_base64
+date_trunc e expm1 format_datetime from_base from_base64
 from_base64url from_big_endian_64 from_hex from_ieee754_32 from_ieee754_64
 from_iso8601_date from_iso8601_timestamp from_unixtime from_utf8 gamma_cdf
 great_circle_distance greatest hamming_distance hmac_md5 hmac_sha1

@@ -15,10 +15,14 @@ values (collisions stay distinct groups), dense group ids via cumsum, then
 segment reductions. Output capacity = max_groups (a planner-provided
 bound); the live group count is a device scalar.
 
-Aggregate functions ported: count/count_star/sum/min/max/avg/checksum and
-min_by/max_by, with SQL null semantics (nulls don't contribute; empty-group
-sum/min/max = NULL, count = 0). The collection, sketch and regression
-aggregates of the JAX package raise "not ported yet".
+Aggregate functions ported: count/count_star/sum/min/max/avg/checksum,
+min_by/max_by, percentile (approx_percentile, exact by selection), the
+HyperLogLog sketch (approx_distinct, approx_set, merge), the quantile
+sketch (ops/qsketch.py) and the central moments behind stddev, variance,
+skewness and kurtosis (ops/moments.py), with SQL null semantics (nulls
+don't contribute; empty-group sum/min/max = NULL, count = 0). The
+collection and regression aggregates of the JAX package raise "not ported
+yet".
 """
 
 from __future__ import annotations
@@ -37,7 +41,13 @@ from ..page import Block, Page, to_tensor
 from .hashing import hash_rows, unsigned_order_key
 
 PORTED = ("count", "count_star", "sum", "min", "max", "avg", "checksum",
-          "min_by", "max_by")
+          "min_by", "max_by", "percentile",
+          "approx_distinct", "hll_registers", "hll_merge",
+          "qsketch", "qsketch_merge",
+          "cmoments", "cmoments_merge")
+# aggregates whose state is a per-group sketch or accumulator row
+SKETCH_FUNCS = ("approx_distinct", "hll_registers", "hll_merge",
+                "qsketch", "qsketch_merge", "cmoments", "cmoments_merge")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,10 +283,150 @@ def _reduce_by(func, value: Val, key: Val, contributes, gid, num_groups: int):
     return vdat, vval
 
 
+def _reduce_percentile(fraction: float, value: Val, contributes, gid, num_groups: int):
+    """Exact percentile by selection: one composite sort by (group, value)
+    with non-contributing rows pushed to each group's end, then a gather at
+    first + round(p * (n-1)) per group. It meets approx_percentile's
+    contract exactly (the reference uses a qdigest estimate,
+    operator/aggregation/ApproximateLongPercentileAggregations)."""
+    from .sort import asc_normalized_scalar_key
+
+    data = value.data
+    gid = gid.to(torch.int64)
+    vc = contributes if value.valid is None else (contributes & value.valid)
+    if data.ndim == 2:
+        # long-decimal lanes: lexicographic (hi, lo) by two stable passes
+        # (the canonical lo lane is non-negative, ops/decimal128.py)
+        order = torch.argsort(data[:, 1], stable=True)
+        order = order[torch.argsort(data[order, 0], stable=True)]
+    else:
+        norm = asc_normalized_scalar_key(data, True)
+        if norm.is_floating_point():
+            vc = vc & ~torch.isnan(norm)
+        # stable three-pass composite sort: by value, contributing rows
+        # first, then by group id; no sentinel values, so genuine extremes
+        # never collide with excluded rows
+        order = torch.argsort(norm, stable=True)
+    order = order[torch.argsort((~vc)[order].to(torch.uint8), stable=True)]
+    order = order[torch.argsort(gid[order], stable=True)]
+    n = data.shape[0]
+    pos = torch.arange(n, dtype=torch.int64, device=data.device)
+    gid_o = gid[order]
+    vc_o = vc[order]
+    # contributing rows sit at each group's front: the group start is the
+    # first contributing position
+    first = torch.full((num_groups,), n, dtype=torch.int64, device=data.device)
+    first = first.scatter_reduce_(0, gid_o, torch.where(vc_o, pos, n), "amin",
+                                  include_self=True)
+    cnt = _segment_sum(vc_o.to(torch.int64), gid_o, num_groups)
+    has = cnt > 0
+    last = torch.clamp(cnt - 1, min=0)
+    off = torch.minimum(torch.round(fraction * last.to(torch.float64)).to(torch.int64), last)
+    target = torch.clamp(first + off, max=n - 1)
+    return data[order[target]], has
+
+
 def positional_reduce(spec: AggSpec, value, by_key, contributes, gid, num_groups: int):
+    """Dispatch for the positional aggregates (min_by/max_by/percentile)."""
     if spec.func == "percentile":
-        raise NotPortedError("not ported yet: aggregate 'percentile'")
+        return _reduce_percentile(float(spec.input2.value), value, contributes, gid,
+                                  num_groups)
     return _reduce_by(spec.func, value, by_key, contributes, gid, num_groups)
+
+
+def sketch_block(spec: AggSpec, data, valid, live, gid, num_groups: int) -> Block:
+    """The HyperLogLog, quantile-sketch and central-moments aggregates of
+    rows by group id `gid`: one block of `num_groups` rows, the estimate or
+    the mergeable state."""
+    from . import moments as mo
+    from . import qsketch as qs
+
+    func = spec.func
+    # hll_merge reads every live row's registers, as the reference does
+    contributes = live if valid is None or func == "hll_merge" else (live & valid)
+    if func in ("approx_distinct", "hll_registers"):
+        regs = hll_group_registers(data, contributes, gid, num_groups)
+        if func == "approx_distinct":
+            return Block(hll_estimate(regs), T.BIGINT, None)
+        return Block(regs, spec.output_type, None)
+    if func == "hll_merge":
+        return Block(hll_merge_registers(data, contributes, gid, num_groups),
+                     spec.output_type, None)
+    if func in ("qsketch", "qsketch_merge"):
+        build = qs.group_sketch if func == "qsketch" else qs.merge_sketches
+        return Block(build(data, contributes, gid, num_groups), T.ArrayType(T.BIGINT),
+                     None)
+    build = mo.group_moments if func == "cmoments" else mo.merge_moments
+    acc = build(data, contributes, gid, num_groups)
+    return Block(acc, T.ArrayType(T.DOUBLE), None,
+                 lengths=torch.full((num_groups,), mo.ACC_WIDTH, dtype=torch.int32,
+                                    device=acc.device))
+
+
+# ---------------------------------------------------------------------------
+# HyperLogLog (reference ApproximateCountDistinctAggregations + airlift
+# HyperLogLog): registers from the value hash, so estimates equal the JAX
+# package's exactly
+# ---------------------------------------------------------------------------
+
+HLL_P = 10  # 2^10 = 1024 registers; standard error 1.04/sqrt(m) ~ 3.25%
+HLL_M = 1 << HLL_P
+
+
+def _clz64(x):
+    """Count leading zeros of the uint64 bits of an int64 tensor (binary
+    search: at each step, if the top `shift` bits are zero, skip them)."""
+    from .hashing import _srl
+
+    is_zero = x == 0
+    n = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for shift in (32, 16, 8, 4, 2, 1):
+        top_zero = _srl(x, 64 - shift) == 0
+        n = n + torch.where(top_zero, shift, 0).to(torch.int32)
+        x = torch.where(top_zero, x << shift, x)
+    return torch.where(is_zero, 64, n)
+
+
+def hll_row_registers(data, contributes):
+    """(register index, rank) per row: the HLL insert decomposition."""
+    from .hashing import _srl, hash_column
+
+    h = hash_column(data, None)
+    reg = _srl(h, 64 - HLL_P).to(torch.int32)
+    rank = torch.clamp(_clz64(h << HLL_P) + 1, max=64 - HLL_P + 1).to(torch.int32)
+    return torch.where(contributes, reg, -1), rank
+
+
+def hll_group_registers(data, contributes, gid, num_groups: int):
+    """Per-group register arrays (num_groups, HLL_M) int8: scatter-max of
+    row ranks, the mergeable HLL state."""
+    reg, rank = hll_row_registers(data, contributes)
+    flat_idx = torch.where(reg >= 0, gid.to(torch.int64) * HLL_M + reg, num_groups * HLL_M)
+    flat = torch.zeros(num_groups * HLL_M + 1, dtype=torch.int8, device=data.device)
+    flat = flat.scatter_reduce_(0, flat_idx, rank.to(torch.int8), "amax", include_self=True)
+    return flat[:-1].reshape(num_groups, HLL_M)
+
+
+def hll_merge_registers(data_s, contributes, gid, num_groups: int):
+    """Elementwise max-merge of register-array rows per group."""
+    masked = torch.where(contributes[:, None], data_s, torch.zeros((), dtype=data_s.dtype,
+                                                                   device=data_s.device))
+    out = torch.zeros((num_groups, HLL_M), dtype=data_s.dtype, device=data_s.device)
+    idx = gid.to(torch.int64)[:, None].expand(-1, HLL_M)
+    return out.scatter_reduce_(0, idx, masked, "amax", include_self=True)
+
+
+def hll_estimate(registers):
+    """(num_groups, HLL_M) registers -> int64 estimates (HLL with the
+    linear-counting small-range correction)."""
+    m = float(HLL_M)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    r = registers.to(torch.float64)
+    raw = alpha * m * m / torch.exp2(-r).sum(dim=1)
+    zeros = (registers == 0).sum(dim=1).to(torch.float64)
+    linear = m * (math.log(m) - torch.log(torch.clamp(zeros, min=1.0)))
+    est = torch.where((raw <= 2.5 * m) & (zeros > 0), linear, raw)
+    return torch.round(est).to(torch.int64)
 
 
 def _masked_live(page: Page, pre_mask) -> torch.Tensor:
@@ -546,11 +696,18 @@ def grouped_aggregate_sorted(
 
     by_keys = _eval_by_keys(page, aggs)
     for spec, v, bk in zip(aggs, ins, by_keys):
-        if spec.func in ("min_by", "max_by"):
+        if spec.func in SKETCH_FUNCS:
+            blk = sketch_block(spec, v.data[order], None if v.valid is None else v.valid[order],
+                               live_s, gid_s, max_groups + 1)
+            blocks.append(blk.take_rows(slice(0, max_groups)))
+            names.append(spec.name)
+            continue
+        if spec.func in ("min_by", "max_by", "percentile"):
             v_sorted = Val(v.data[order], None if v.valid is None else v.valid[order],
                            v.type, v.dict_id)
-            k_sorted = Val(bk.data[order], None if bk.valid is None else bk.valid[order],
-                           bk.type, bk.dict_id)
+            k_sorted = None if bk is None else Val(
+                bk.data[order], None if bk.valid is None else bk.valid[order],
+                bk.type, bk.dict_id)
             vdat, vval = positional_reduce(
                 spec, v_sorted, k_sorted, live_s, gid_s, max_groups + 1
             )
@@ -639,7 +796,13 @@ def global_aggregate(page: Page, aggs: Sequence[AggSpec], pre_mask=None) -> Page
     blocks, names = [], []
     gid = torch.zeros(page.capacity, dtype=torch.int64, device=dev)
     for spec, v, bk in zip(aggs, ins, by_keys):
-        if spec.func in ("min_by", "max_by"):
+        if spec.func in SKETCH_FUNCS:
+            # dead rows go to a second group, dropped
+            blk = sketch_block(spec, v.data, v.valid, live, (~live).to(torch.int64), 2)
+            blocks.append(blk.take_rows(slice(0, 1)))
+            names.append(spec.name)
+            continue
+        if spec.func in ("min_by", "max_by", "percentile"):
             vdat, vval = positional_reduce(spec, v, bk, live, gid, 1)
             blocks.append(Block(vdat.to(spec.output_type.storage_dtype),
                                 spec.output_type, vval, v.dict_id))

@@ -215,6 +215,12 @@ def segment_sum_wide(x_lanes, segment_ids, num_segments):
     return torch.stack([hi, lo], dim=-1)
 
 
+def cumsum_wide(x_lanes):
+    """Exact prefix sums of lane pairs (same < 2^31 row bound)."""
+    hi, lo = dnorm(torch.cumsum(x_lanes[..., 0], 0), torch.cumsum(x_lanes[..., 1], 0))
+    return torch.stack([hi, lo], dim=-1)
+
+
 def to_float64(lanes):
     return lanes[..., 0].to(torch.float64) * float(2**32) + lanes[..., 1].to(
         torch.float64

@@ -35,6 +35,21 @@ class SortKey:
         return not self.ascending
 
 
+def asc_normalized_scalar_key(data, ascending: bool):
+    """One 1-D key tensor normalized so ascending numeric order is the
+    requested order (bool widened, negated for DESC). None for multi-lane
+    (long-decimal) data, which has no single scalar."""
+    if data.ndim == 2:
+        return None
+    if data.dtype == torch.bool:
+        data = data.to(torch.int32)
+    if not ascending:
+        # bitwise NOT reverses integer order and, unlike negation, cannot
+        # overflow on INT64_MIN
+        data = -data if data.is_floating_point() else ~data.to(torch.int64)
+    return data
+
+
 def _float_total_order(x):
     """Total-order integer key for a float tensor: -0.0 ties +0.0 and NaNs
     compare ABOVE +inf (they land last in ascending order)."""

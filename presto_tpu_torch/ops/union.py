@@ -1,10 +1,10 @@
-"""Page concatenation and null extension (torch counterpart of the part of
-presto_tpu/ops/union.py that joins need).
+"""Page concatenation and null extension (torch counterpart of
+presto_tpu/ops/union.py).
 
-The page-level machinery behind outer-join null extension (the reference
-LookupJoinOperator's probe-side rows with NULL build channels): stack pages
-row-wise over one merged dictionary per varchar column, and add all-NULL
-columns.
+The page-level machinery behind UNION (reference UnionNode) and outer-join
+null extension (the reference LookupJoinOperator's probe-side rows with
+NULL build channels): stack pages row-wise over one merged dictionary per
+varchar column, and add all-NULL columns.
 """
 
 from __future__ import annotations
@@ -39,9 +39,10 @@ def unify_block_dictionaries(blocks):
     return out, did
 
 
-def concat_pages(pages: Sequence[Page]) -> Page:
+def concat_pages(pages: Sequence[Page], distinct: bool = False) -> Page:
     """Stack pages row-wise (same schema), live rows compacted to the
-    front. Output capacity = the sum of the input capacities."""
+    front. Output capacity = the sum of the input capacities; `distinct`
+    keeps one row of each distinct row (UNION without ALL)."""
     first = pages[0]
     total_cap = sum(p.capacity for p in pages)
     blocks = []
@@ -59,7 +60,12 @@ def concat_pages(pages: Sequence[Page]) -> Page:
     occ = torch.cat([p.live_mask() for p in pages])
     out = Page(tuple(blocks), first.names,
                torch.tensor(total_cap, dtype=torch.int32, device=first.device))
-    return compact(out, occ)
+    out = compact(out, occ)
+    if distinct:
+        from .sort import distinct_page
+
+        out = distinct_page(out, out.capacity)
+    return out
 
 
 def null_block(typ: T.Type, capacity: int, dict_id: Optional[int] = None,
@@ -77,3 +83,13 @@ def extend_with_nulls(page: Page, names, types, dict_ids, prepend: bool = False)
     if prepend:
         return Page(extra + tuple(page.blocks), tuple(names) + page.names, page.count)
     return Page(tuple(page.blocks) + extra, page.names + tuple(names), page.count)
+
+
+def empty_page(schema, device="cuda") -> Page:
+    """A zero-row page for `{name: Type}` with a 1-slot capacity per column;
+    varchar columns get an empty interned dictionary."""
+    blocks = []
+    for typ in schema.values():
+        did = intern_dictionary(()) if isinstance(typ, T.VarcharType) else None
+        blocks.append(null_block(typ, 1, did, device))
+    return Page.from_blocks(blocks, list(schema), count=0, device=device)

@@ -958,10 +958,6 @@ class Planner:
 
     def _plan_windows(self, calls, sctx, holder) -> Dict:
         """Group window calls by spec, append one Window node per spec."""
-        from ..expr.functions import NotPortedError
-
-        if calls:
-            raise NotPortedError("not ported yet: window functions")
         from ..ops.window import AGGREGATE, OFFSET, RANKING, VALUE, WindowFunc
 
         win_map: Dict[t.Node, Tuple[str, T.Type]] = {}

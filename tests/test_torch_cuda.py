@@ -4,8 +4,9 @@ kernel also at the edges of its regimes and grid, chip_smoke.py's
 GROUPBY_EDGES, and as one launch per call; the first-match join probe as
 one launch, the table build with at most two host reads; the fused-Q1
 kernel at the edges of its loads and grid, chip_smoke.py's Q1_EDGES, and
-as one launch per call), and TPC-H queries and the hand-coded pipelines
-on "cuda" against the same on "cpu".
+as one launch per call), and the 22 TPC-H queries, the analytic set of
+chip_smoke.py (windows, set operations, ROLLUP, moments, TABLESAMPLE) and
+the hand-coded pipelines on "cuda" against the same on "cpu".
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -161,17 +162,38 @@ def test_probe_n1_is_one_launch_and_build_reads_twice(cuda):
     assert res["launches"] == 1 and res["memcpy"] == 0 and res["stream_syncs"] == 0
 
 
+@pytest.fixture(scope="module")
+def sessions_sf001():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cat = TpchCatalog(0.01, device="cuda")
+    return Session(cat, device="cuda"), Session(cat.with_device("cpu"), device="cpu")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [1, 6, 3, 5, 17, 18])
-def test_queries_on_card_equal_cpu(cuda, q):
+@pytest.mark.parametrize("q", [*range(1, 23), "q20_variant"])
+def test_queries_on_card_equal_cpu(cuda, sessions_sf001, q):
+    card, cpu = sessions_sf001
+    text = chip_smoke.q20_variant(QUERIES[20]) if q == "q20_variant" else QUERIES[q]
     before = gk.launches, jk.insert_launches
-    got = Session(TpchCatalog(0.01, device="cuda"), device="cuda").query(QUERIES[q]).rows()
+    got = card.query(text).rows()
     if q == 1:
         assert gk.launches > before[0]
     if q in (3, 5, 17, 18):
         assert jk.insert_launches > before[1]
-    want = Session(TpchCatalog(0.01, device="cpu"), device="cpu").query(QUERIES[q]).rows()
-    assert got == want
+    want = cpu.query(text).rows()
+    assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
+    assert len(got) > 0 or q == 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(chip_smoke.ANALYTIC_SQL))
+def test_analytic_on_card_equal_cpu(cuda, sessions_sf001, name):
+    card, cpu = sessions_sf001
+    got = chip_smoke.run_analytic(card, name)
+    want = chip_smoke.run_analytic(cpu, name)
+    assert chip_smoke.result_diff(name, got, want) is None
+    assert len(next(iter(got.values()))[0] if name in chip_smoke.COLUMN_RESULTS else got) > 0
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ from presto_tpu_torch.connectors.tpch import TpchCatalog
 from presto_tpu_torch.exec.executor import ExecutionError
 from presto_tpu_torch.expr.functions import NotPortedError
 from presto_tpu_torch.ops import groupby_kernel as gk
+from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.session import Session
 
 
@@ -44,7 +45,10 @@ def test_session_device_and_unported_paths(sessions):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Session(TpchCatalog(0.01, device="cpu"))
-    with pytest.raises(NotPortedError, match="not ported yet: window functions"):
-        port.query("select n_name, rank() over (order by n_regionkey) from nation")
-    with pytest.raises(ExecutionError, match="not ported yet: Union"):
-        port.query("select n_name from nation union all select r_name from region")
+    with pytest.raises(NotPortedError, match="not ported yet: aggregate 'array_agg'"):
+        port.query("select array_agg(n_name) from nation")
+    with pytest.raises(NotPortedError, match="not ported yet: function 'reverse'"):
+        port.query("select reverse(n_name) from nation")
+    scan = port.plan("select n_nationkey from nation").child
+    with pytest.raises(ExecutionError, match="not ported yet: Unnest"):
+        port.executor.run(N.Unnest(scan, (), (), None))
