@@ -41,6 +41,17 @@ numpy splitmix64), each held against an independent numpy computation.
 Both paths must launch kernels 1-3. One warm run of each of their
 queries is then traced (device busy time, idle share, launches,
 device-to-host reads).
+Then the TPC-DS paths, over `TpcdsCatalog(1.0)` on the card: `tpcds`, the
+103 TPC-DS texts, each cold then twice warm, each run held against the
+same text through the port on the CPU (computed meanwhile by five spawned
+processes over tables generated from the same seeds; rows in order, as
+`tpch22`), with rows, launches of kernels 1-3, walls and the CPU's
+time per text, the weak checks listed (no rows, or a ROLLUP with only its
+grand-total row), a summary line, and kernels 1-3 required; `functions`,
+one SELECT per family of the scalar function library (FUNCTION_SQL) held
+against the CPU over the same host tables. One warm run of every
+`tpcds` text above 20 ms and of every `functions` family is traced in a
+new process (`start_traces`), while the CPU side finishes.
 Phase 2 holds each kernel against its plain PyTorch version on the card:
 the group-by kernel at Q1's, Q5's and Q18's (hash-slot) calls, two wider
 G 64 cases and the edges of its regimes and grid (GROUPBY_EDGES), and
@@ -63,7 +74,10 @@ card, with a count below capacity and a cutoff that empties groups, on a
 case whose sum of charge passes 2^63 (also held to exact Python-int
 totals), and at the edges of its loads and grid (Q1_EDGES: unaligned
 columns, a partial last step, fewer rows than a block's step, count 0,
-count past n), each call raising the launch count by one. It times the kernel, the plain
+count past n), each call raising the launch count by one; and kernels 1-3
+at the largest calls the TPC-DS texts make (capture_calls: the
+largest build and first-match probe, and the largest group-by whose keys
+hold NULLs). It times the kernel, the plain
 version, one PyTorch library call where one computes the same function,
 and the byte bound. The torch.profiler checks of phase 2 (one launch, no
 copy or synchronise) are gathered with their inputs and made together
@@ -983,54 +997,99 @@ def analytic_checks(tables, sess):
     return checks
 
 
+_RUNTIME_KEYS = _LAUNCH_KEYS + _MEMCPY_KEYS + ("cudaMemsetAsync",)
+_SYNC_KEYS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+_OUR_KERNELS = ("groupby_tile_kernel", "groupby_atomic_kernel", "join_insert_kernel",
+                "join_probe_kernel", "q1_partials_kernel")
+
+
+_WINDOW = "chip_smoke.window"  # the record_function range around a traced call
+_PAD_LAUNCHES = 32
+
+
+def _window_summary(events, wall_ms, warm_ms):
+    """profile_one's summary of one traced window, from the profiler's raw
+    records (`kineto_results.events()`: one pass, without building the
+    profiler's event tree, which took most of the trace step's time on
+    windows of tens of thousands of launches). Only the runtime calls made
+    inside the `_WINDOW` range count, and only the device records that
+    match one of them by CUPTI correlation id."""
+    import collections
+
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in events if e.device_type() != cuda]
+    start = min(e.start_ns() for e in host if e.name() == _WINDOW)
+    calls, runtime, pad = collections.Counter(), set(), set()
+    for e in host:
+        name = e.name()
+        if e.start_ns() < start:
+            if name in _RUNTIME_KEYS:
+                pad.add(e.correlation_id())
+        elif name in _RUNTIME_KEYS or name in _SYNC_KEYS:
+            calls[name] += 1
+            if name in _RUNTIME_KEYS:
+                runtime.add(e.correlation_id())
+    dev_ms, dev_n, have = collections.Counter(), collections.Counter(), set()
+    for e in events:
+        if e.device_type() == cuda:
+            have.add(e.correlation_id())
+            if e.correlation_id() in runtime:
+                dev_ms[e.name()] += e.duration_ns() / 1e6
+                dev_n[e.name()] += 1
+    missing = len(runtime - have)
+    busy_ms = sum(dev_ms.values())
+    return {
+        "complete": missing == 0, "missing_device_records": missing,
+        "pad_records_lost": len(pad - have),
+        "profiled_wall_ms": wall_ms, "warm_wall_ms": warm_ms,
+        "device_busy_ms": busy_ms, "idle_share_of_warm_wall": 1.0 - busy_ms / warm_ms,
+        "device_launches": sum(dev_n.values()),
+        "launch_calls": sum(calls[k] for k in _LAUNCH_KEYS),
+        "memcpy_calls": sum(calls[k] for k in _MEMCPY_KEYS),
+        "host_syncs": sum(n for k, n in dev_n.items() if "DtoH" in k),
+        "htod_copies": sum(n for k, n in dev_n.items() if "HtoD" in k),
+        "stream_syncs": sum(calls[k] for k in _SYNC_KEYS) - 1,
+        "our_kernels_device_ms": {k: sum(ms for n, ms in dev_ms.items() if k in n)
+                                  for k in _OUR_KERNELS},
+        "top_device_ms": {n[:70]: ms for n, ms in dev_ms.most_common(8)},
+    }
+
+
 def profile_one(fn, warm_ms, tries=3):
-    """One warm call of fn under torch.profiler: (summary, key_averages).
+    """One warm call of fn under torch.profiler: (summary, the profiler).
     The summary holds device busy ms, its idle share of the unprofiled warm
     wall `warm_ms`, device launches, device-to-host copies (each a host
-    read), host-to-device copies, CPU-side stream synchronises (less the
-    one that closes the window), our kernels' device ms, and whether the
-    window was complete (_complete; an incomplete one is traced again, at
-    most `tries` times in all)."""
+    read), host-to-device copies, the host-side copy calls and CPU-side
+    stream synchronises (less the one that closes the window; both seen on
+    the host, so no device record they lack can hide them), our kernels'
+    device ms, and the runtime calls (launches, copies, memsets) whose
+    device record is missing, matched by CUPTI correlation id; a window
+    with any is not "complete" and is traced again, at most `tries` times
+    in all. `_PAD_LAUNCHES` small kernels run first, outside the window's
+    range, since the device records torch.profiler loses are the first
+    ones after it starts ("pad_records_lost" counts them)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    pad = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
+            for _ in range(_PAD_LAUNCHES):
+                pad.add_(1)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        events = prof.key_averages()
-        complete = _complete(events)
-        if complete:
+            with record_function(_WINDOW):
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+        summary = _window_summary(prof.profiler.kineto_results.events(), wall_ms, warm_ms)
+        if summary["complete"]:
             break
-    # device-side events only (kernels, copies): the CPU-side aten ops
-    # also report the device time of the kernels they launched
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
-    busy_ms = sum(dev_us(e) for e in device) / 1e3
-    top = sorted(device, key=dev_us, reverse=True)[:8]
-    ours = {k: sum(dev_us(e) for e in device if k in e.key) / 1e3
-            for k in ("groupby_tile_kernel", "groupby_atomic_kernel", "join_insert_kernel",
-                      "join_probe_kernel", "q1_partials_kernel")}
-    syncs = sum(e.count for e in events
-                if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
-    return {
-        "complete": complete, "profiled_wall_ms": wall_ms, "warm_wall_ms": warm_ms,
-        "device_busy_ms": busy_ms, "idle_share_of_warm_wall": 1.0 - busy_ms / warm_ms,
-        "device_launches": sum(e.count for e in device),
-        "host_syncs": sum(e.count for e in device if "DtoH" in e.key),
-        "htod_copies": sum(e.count for e in device if "HtoD" in e.key),
-        "stream_syncs": syncs - 1,
-        "our_kernels_device_ms": ours,
-        "top_device_ms": {e.key[:70]: dev_us(e) / 1e3 for e in top},
-    }, events
+    return summary, prof
 
 
 def _timed_runs(fn, runs, check, label):
@@ -1119,6 +1178,345 @@ def trace_paths(sess, tpch22, analytic):
         summary, _ = profile_one(lambda: run_analytic(sess, name), rep["warm_ms"])
         rep["profile"] = summary
         print(f"phase3 analytic {name}", json.dumps(rep), flush=True)
+
+
+# -- phase 3: TPC-DS at SF 1, and the scalar function library ---------------
+
+TPCDS_SF = 1.0
+CPU_WORKERS = 5  # processes computing the CPU side of `tpcds` (8 host cores)
+# the TPC-DS texts slowest on the CPU (some over a minute at SF 1 on one
+# core), submitted to the pool first
+CPU_SLOW_FIRST = ("Q14", "Q22", "Q39", "Q139", "Q114", "Q4", "Q123", "Q23", "Q64", "Q11",
+                  "Q74", "Q78", "Q47", "Q57")
+# the `tpcds` texts phase 2 captures kernel calls from: the star joins of
+# inventory and of the three sales channels, the ROLLUP texts (planned as a
+# union of one aggregation per level, so no level groups by a NULL
+# literal), and the functions path's store_sales aggregates, which group by
+# ss_store_sk, a foreign key the generator leaves NULL in about 4 % of rows
+TPCDS_CAPTURE = ("Q3", "Q5", "Q7", "Q14", "Q18", "Q21", "Q22", "Q27", "Q36", "Q37", "Q39",
+                 "Q67", "Q70", "Q72", "Q76", "Q77", "Q80", "Q82", "Q86", "math", "bitwise")
+TRACE_MIN_WARM_MS = 20.0  # `tpcds` traces every query whose warm wall is above this
+
+
+def make_tpcds_session(sf=TPCDS_SF, device="cuda"):
+    """Session over TpcdsCatalog(sf) on `device`, all 24 tables generated and
+    uploaded (set-up, not query time)."""
+    import torch
+
+    from presto_tpu_torch.connectors.tpcds import TABLE_NAMES, TpcdsCatalog
+    from presto_tpu_torch.session import Session
+
+    t0 = time.perf_counter()
+    cat = TpcdsCatalog(sf, device=device)
+    for name in TABLE_NAMES:
+        cat.page(name)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    rows = {n: cat.exact_row_count(n)
+            for n in ("inventory", "store_sales", "catalog_sales", "web_sales")}
+    print(f"phase3 tpcds SF {sf} tables generated+uploaded in "
+          f"{time.perf_counter() - t0:.3f} s, fact rows {json.dumps(rows)}", flush=True)
+    return Session(cat, device=device), cat
+
+
+def tpcds_texts():
+    """{label: SQL} of the `tpcds` path: the 103 TPC-DS texts."""
+    from presto_tpu_torch.benchmark.tpcds_sql import QUERIES
+
+    return {f"Q{q}": QUERIES[q] for q in sorted(QUERIES)}
+
+
+_CPU_SESSION = None
+
+
+def _cpu_worker_init(sf):
+    import torch
+
+    from presto_tpu_torch.connectors.tpcds import TpcdsCatalog
+    from presto_tpu_torch.session import Session
+
+    global _CPU_SESSION
+    torch.set_num_threads(1)
+    _CPU_SESSION = Session(TpcdsCatalog(sf, device="cpu"), device="cpu")
+
+
+def _cpu_rows(label, text):
+    t = time.perf_counter()
+    rows = _CPU_SESSION.query(text).rows()
+    return label, rows, (time.perf_counter() - t) * 1e3
+
+
+def start_cpu_rows(texts, sf=TPCDS_SF, workers=CPU_WORKERS):
+    """The port's rows of every text on the CPU, computed in `workers` new
+    processes (spawned, one torch thread each; each generates the tables
+    its queries read, from the same seeds, so they are the card's tables)
+    while this process drives the card. Returns (pool, {label: future})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_cpu_worker_init, initargs=(sf,))
+    order = [q for q in CPU_SLOW_FIRST if q in texts] + [q for q in texts
+                                                         if q not in CPU_SLOW_FIRST]
+    return pool, {label: pool.submit(_cpu_rows, label, texts[label]) for label in order}
+
+
+def weak_checks(texts, report):
+    """The texts whose result checks little: no rows, or a ROLLUP whose only
+    row is the grand total. A global aggregate's one row is a real check."""
+    empty = [q for q, r in report.items() if r["result_rows"] == 0]
+    total_only = [q for q, r in report.items()
+                  if r["result_rows"] == 1 and "rollup" in texts[q].lower()]
+    return {"empty": empty, "rollup_grand_total_only": total_only}
+
+
+def tpcds_card_runs(sess, runs=3):
+    """The 103 TPC-DS texts through Session.query on the card, each cold then
+    warm. Returns ({label: report}, {label: the rows of each run})."""
+    report, outs = {}, {}
+    t0 = time.perf_counter()
+    for label, text in tpcds_texts().items():
+        outs[label] = []
+        cold, warm, launches, rows = _timed_runs(
+            lambda: sess.query(text).rows(), runs, lambda got: outs[label].append(got),
+            f"{label} on the card")
+        report[label] = {"result_rows": len(rows), "launches": launches, "cold_ms": cold,
+                         "warm_ms": warm}
+    print(f"phase3 tpcds card runs {time.perf_counter() - t0:.3f} s", flush=True)
+    return report, outs
+
+
+def tpcds_summary(report, traces):
+    """Totals and spreads of the `tpcds` path over its texts (report, from
+    tpcds_card_runs and tpcds_compare) and its traced windows (traces, from
+    finish_traces): the line PERF.md's summary reads."""
+    import statistics
+
+    def spread(vals):
+        vals = sorted(vals)
+        return {"n": len(vals), "sum": sum(vals), "median": statistics.median(vals),
+                "p90": vals[int(0.9 * (len(vals) - 1))], "max": vals[-1]}
+
+    prof = [g for (section, _), g in traces.items() if section == "tpcds"]
+    # device busy, idle and device-to-host counts only from complete
+    # windows; copies and synchronises are host-side, counted in every one
+    whole = [g for g in prof if g["complete"]]
+    out = {
+        "warm_ms": spread([r["warm_ms"] for r in report.values()]),
+        "cold_ms": spread([r["cold_ms"] for r in report.values()]),
+        "cpu_ms": spread([r["cpu_ms"] for r in report.values()]),
+        "slowest_warm": sorted(report, key=lambda q: -report[q]["warm_ms"])[:10],
+        "launches": {k: sum(r["launches"][k] for r in report.values())
+                     for k in ("groupby_partials", "join_insert", "join_probe")},
+        "traced": len(prof), "complete_windows": len(whole),
+        "incomplete_windows": sorted((q for (section, q), g in traces.items()
+                                      if section == "tpcds" and not g["complete"]),
+                                     key=lambda q: int(q[1:])),
+        "missing_device_records": sum(g["missing_device_records"] for g in prof),
+        "host_copy_calls": spread([g["memcpy_calls"] for g in prof]),
+        "host_stream_syncs": spread([g["stream_syncs"] for g in prof]),
+    }
+    if whole:
+        out.update(device_busy_ms=spread([g["device_busy_ms"] for g in whole]),
+                   idle_share=spread([g["idle_share_of_warm_wall"] for g in whole]),
+                   device_launches=spread([g["device_launches"] for g in whole]),
+                   dtoh_copies=spread([g["host_syncs"] for g in whole]))
+    print("phase3 tpcds summary", json.dumps(out), flush=True)
+    return out
+
+
+def tpcds_compare(report, outs, cpu_rows):
+    """Each run's rows (tpcds_card_runs) against the port's rows on the CPU
+    (`cpu_rows`, {label: future} from start_cpu_rows). Returns the weak
+    checks."""
+    texts = tpcds_texts()
+    t0 = time.perf_counter()
+    for label in texts:
+        _, want, cpu_ms = cpu_rows[label].result()
+        for got in outs.pop(label):
+            diff = row_diff(got, want)
+            if diff is not None:
+                raise AssertionError(f"{label} on the card against the CPU: {diff}")
+        report[label]["cpu_ms"] = cpu_ms
+        print(f"phase3 tpcds {label}", json.dumps(report[label]), flush=True)
+    weak = weak_checks(texts, report)
+    held = [q for q in texts if q not in weak["empty"] + weak["rollup_grand_total_only"]]
+    print(f"phase3 tpcds waited {time.perf_counter() - t0:.3f} s for the CPU rows; "
+          f"{len(held)} of {len(texts)} texts held, weak checks {json.dumps(weak)}", flush=True)
+    return weak
+
+
+# the `functions` path: one SELECT per family of the scalar function library
+# over TPC-DS columns (dates from date_dim and time_dim, strings from
+# customer and item, numbers from store_sales)
+FUNCTION_SQL = {
+    "dates": "select d_date_sk, date_add('month', 1, d_date), date_add('day', -3, d_date), "
+             "date_diff('day', d_date, date '2002-01-01'), date_diff('month', d_date, date '2001-07-31'), "
+             "date_trunc('quarter', d_date), date_trunc('week', d_date), "
+             "date_format(d_date, '%Y-%m-%d %a %b %j'), format_datetime(d_date, 'yyyy/MM/dd EEE'), "
+             "to_iso8601(d_date), week(d_date), year_of_week(d_date), last_day_of_month(d_date), "
+             "to_unixtime(d_date), hour(d_date), from_iso8601_date(d_date_id) is null "
+             "from date_dim where d_year between 1998 and 2002 order by d_date_sk",
+    "timestamps": "select t_time_sk, from_unixtime(t_time + 946684800), "
+             "hour(from_unixtime(t_time)), minute(from_unixtime(t_time)), "
+             "second(from_unixtime(t_time)), millisecond(from_unixtime(t_time + 0.25)), "
+             "date_trunc('hour', from_unixtime(t_time)), "
+             "date_add('minute', 90, from_unixtime(t_time)), "
+             "date_diff('second', from_unixtime(t_time), from_unixtime(86399)), "
+             "year_of_week(from_unixtime(t_time)), timezone_hour(from_unixtime(t_time)) "
+             "from time_dim where t_time_sk % 997 = 0 "
+             "order by t_time_sk",
+    "math": "select ss_store_sk, count(*), sum(greatest(ss_quantity, ss_item_sk % 7)), "
+            "sum(least(ss_quantity, 50)), sum(width_bucket(ss_sales_price, 0, 200, 10)), "
+            "sum(truncate(ss_net_profit)), max(cbrt(ss_quantity)), max(log(2, ss_quantity + 1)), "
+            "min(atan2(ss_net_profit, ss_sales_price + 1)), max(pow(ss_quantity, 2)), "
+            "max(expm1(ss_quantity / 100.0)), max(log1p(ss_quantity)), max(asinh(ss_quantity)), "
+            "max(cot(ss_quantity + 0.5)), max(ceiling(ss_sales_price)), "
+            "max(wilson_interval_upper(ss_quantity, 100, 1.96)) "
+            "from store_sales group by ss_store_sk order by ss_store_sk",
+    "bitwise": "select ss_store_sk, sum(bitwise_and(ss_ticket_number, 255)), "
+               "sum(bitwise_or(ss_item_sk, 3)), sum(bitwise_xor(ss_ticket_number, ss_item_sk)), "
+               "sum(bit_count(ss_ticket_number, 64)), sum(bitwise_not(ss_item_sk)), "
+               "sum(bitwise_left_shift(ss_item_sk, 3)), "
+               "sum(bitwise_right_shift(-ss_ticket_number, 60)), "
+               "sum(bitwise_arithmetic_shift_right(-ss_ticket_number, 2)), "
+               "sum(bitwise_logical_shift_right(-ss_item_sk, 61)) "
+               "from store_sales group by ss_store_sk order by ss_store_sk",
+    "strings": "select c_customer_sk, lpad(c_first_name, 12, '*'), rpad(c_last_name, 4), "
+               "reverse(c_last_name), replace(c_email_address, 'email', 'mail:'), "
+               "split_part(c_first_name, 'a', 2), ltrim(c_salutation), ucase(c_first_name), "
+               "levenshtein_distance(c_first_name, 'John'), strrpos(c_last_name, 'e'), "
+               "position('a' in c_first_name), codepoint(c_last_name), chr(65), "
+               "translate(c_last_name, 'aeiou', 'AEIOU'), concat_ws('-', c_first_name, c_last_name), "
+               "char_length(c_email_address), hamming_distance(c_birth_country, 'CHILE') "
+               "from customer where c_customer_sk % 97 = 0 order by c_customer_sk",
+    "regexp": "select i_item_sk, regexp_like(i_item_desc, '^[A-M]'), "
+              "regexp_replace(i_brand, '([a-z]+)', '<$1>'), regexp_extract(i_class, '(\\w+) class', 1), "
+              "regexp_count(i_item_desc, 'e'), word_stem(i_category), normalize(i_color) "
+              "from item where i_item_sk % 13 = 0 order by i_item_sk",
+    "json_url": "select c_customer_sk, "
+                "json_extract_scalar(concat(concat('{\"id\": \"', c_last_name), '\", \"n\": [1, 2]}'), '$.id'), "
+                "json_array_length(json_extract(concat(concat('{\"id\": \"', c_last_name), '\", \"n\": [1, 2]}'), '$.n')), "
+                "json_size(concat(concat('{\"id\": \"', c_last_name), '\", \"n\": [1, 2]}'), '$.n'), "
+                "json_array_get(concat(concat('[\"', c_first_name), '\", 3]'), 0), "
+                "is_json_scalar(c_first_name), json_format(concat(concat('[', c_birth_country), ']')), "
+                "url_extract_host(concat(concat('https://', c_first_name), '.example.com:8443/p/q?id=7#top')), "
+                "url_extract_port(concat(concat('https://', c_first_name), '.example.com:8443/p/q?id=7#top')), "
+                "url_extract_parameter(concat(concat('https://h/p?id=', c_last_name), '&x=1'), 'id'), "
+                "url_encode(c_email_address), url_decode(url_encode(c_first_name)) "
+                "from customer where c_customer_sk % 89 = 0 order by c_customer_sk",
+    "digests": "select i_item_sk, md5(i_item_id), sha1(i_brand), sha256(i_category), "
+               "substr(sha512(i_item_id), 1, 16), crc32(i_item_id), xxhash64(i_item_id), "
+               "spooky_hash_v2_64(i_item_id), to_hex(i_category), from_hex(to_hex(i_category)), "
+               "to_base64(i_brand), from_base64(to_base64(i_brand)), hmac_sha256(i_item_id, 'k'), "
+               "from_base(substr(i_item_id, 10, 7), 10), char2hexint(i_size) "
+               "from item where i_item_sk % 11 = 0 order by i_item_sk",
+    "constants": "select count(*), sum(pi() * d_moy), max(e()), typeof(max(d_date)), "
+                 "max(to_base(255, 16)), max(human_readable_seconds(86461)), "
+                 "max(current_timezone()), sum(if(d_date <= current_date(), 1, 0)) "
+                 "from date_dim where d_year = 2000",
+}
+
+
+def functions_path(sess, cpu_sess, runs=3):
+    """FUNCTION_SQL through Session.query on the card, each run held against
+    the port on the CPU over the same host tables. Returns {family: report}."""
+    report = {}
+    for family, text in FUNCTION_SQL.items():
+        t = time.perf_counter()
+        want = cpu_sess.query(text).rows()
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        cold, warm, launches, rows = _timed_runs(
+            lambda: sess.query(text).rows(), runs, lambda got: row_diff(got, want),
+            f"functions {family} on the card against the CPU")
+        if not rows:
+            raise AssertionError(f"functions {family} returned no rows")
+        report[family] = {"result_rows": len(rows), "launches": launches, "cold_ms": cold,
+                          "warm_ms": warm, "cpu_ms": cpu_ms}
+        print(f"phase3 functions {family}", json.dumps(report[family]), flush=True)
+    return report
+
+
+def run_tpcds_traces(path):
+    """The new process of start_traces: profile_one over one warm run of
+    each (section, label, SQL, warm ms) item of the job at `path`, on a new
+    TPC-DS session on the card, each window traced once (the summary
+    leaves an incomplete window out of its device-side spreads)."""
+    with open(path) as f:
+        job = json.load(f)
+    sess, _ = make_tpcds_session(job["sf"])
+    for section, label, text, warm_ms in job["items"]:
+        summary, _ = profile_one(lambda: sess.query(text).rows(), warm_ms, tries=1)
+        print(f"phase3 {section} {label} profile", json.dumps(summary), flush=True)
+
+
+def start_traces(items, tmp, sf=TPCDS_SF):
+    """profile_one over the (section, label, SQL, warm ms) items in one new
+    process (late in a long process torch.profiler loses device records:
+    launch_checks_in_child), started now and read by finish_traces; the
+    job file goes in the directory `tmp`."""
+    import os
+
+    path = os.path.join(tmp, "traces.json")
+    with open(path, "w") as f:
+        json.dump({"sf": sf, "items": items}, f)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.run_tpcds_traces({path!r})"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, len(items), time.perf_counter()
+
+
+def finish_traces(handle, timeout=900):
+    """The lines of start_traces' process, relayed; {(section, label):
+    summary}."""
+    proc, n_items, t0 = handle
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    got = {}
+    for line in stdout.splitlines():
+        if line.startswith("phase3"):
+            print(line, flush=True)
+        if line.startswith("phase3") and " profile {" in line:
+            section, label = line.split()[1:3]
+            got[(section, label)] = json.loads(line[line.index("{"):])
+    if proc.returncode != 0:
+        raise AssertionError(f"the traces failed:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    if len(got) != n_items:
+        raise AssertionError(f"{n_items} traces asked for, {len(got)} made")
+    complete = sum(g["complete"] for g in got.values())
+    missing = sum(g["missing_device_records"] for g in got.values())
+    pad = sum(g["pad_records_lost"] for g in got.values())
+    print(f"phase3 {len(got)} traces ({complete} complete windows, {missing} device records "
+          f"missing, {pad} lost before the windows) made in a new process in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return got
+
+
+def tpcds_phase2(sess):
+    """Kernels 1-3 against their plain versions at the largest calls of the
+    TPC-DS texts TPCDS_CAPTURE (capture_calls). Returns (group-by, insert,
+    probe) results."""
+    from presto_tpu_torch.benchmark.tpcds_sql import QUERIES
+
+    rec = capture_calls(sess, {label: FUNCTION_SQL[label] if label in FUNCTION_SQL
+                               else QUERIES[int(label[1:])] for label in TPCDS_CAPTURE})
+    if rec["null_key_totals"] is None:
+        raise AssertionError("no TPC-DS group-by with NULL keys reached the group-by kernel")
+    q_g, call, n = rec["null_key_totals"]
+    q_i, (h, live, bits), n_live = rec["insert"]
+    q_p, (jt, ph, plive, prep), _ = rec["probe"]
+    print(f"phase2 tpcds largest build: {q_i} n={h.shape[0]} live={n_live} bits={bits}; "
+          f"largest n1 probe: {q_p} m={ph.shape[0]} live={int(plive.sum())} table slots="
+          f"{jt.slots.shape[0]}; largest group-by with NULL keys: {q_g} n={n} G={call[6]}",
+          flush=True)
+    tol = exact if call[3] is None or not call[3][0].is_floating_point() else f64_tol
+    groupby = kernel_case(f"tpcds_null_keys_{q_g.lower()}", call, tol)
+    insert = insert_case(f"tpcds_largest_build_{q_i.lower()}", h, live, bits)[0]
+    probe = probe_case(f"tpcds_largest_probe_{q_p.lower()}", jt.slots, ph, plive, jt.bits, prep)
+    return groupby, insert, probe
 
 
 # -- phase 3: the benchmark path on device-generated data -------------------
@@ -1212,18 +1610,21 @@ def benchmark_path(sf=1.0, device="cuda", runs=3):
 # -- phase 2: the join kernels against their plain versions -----------------
 
 
-def capture_calls(sess, queries=(3, 5, 17, 18)):
-    """One more run of the join queries with the kernel wrappers wrapped:
-    the join_insert call and the first-match probe (`_probe_n1`) with the
-    most live rows (with the query each came from), and Q5's and Q18's
-    groupby_totals calls."""
-    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+def capture_calls(sess, texts, totals_of=()):
+    """One more run of each {label: SQL} of `texts` with the kernel wrappers
+    wrapped: the join_insert call and the first-match probe (`_probe_n1`)
+    with the most live rows, the groupby_totals calls of the labels
+    `totals_of`, and the groupby_totals call with the most rows among those
+    whose group keys hold NULLs (each with the label it came from)."""
+    from presto_tpu_torch.expr.compiler import evaluate
     from presto_tpu_torch.ops import groupby_kernel as gk
     from presto_tpu_torch.ops import join_kernel as jk
 
-    rec = {"insert": None, "probe": None, "q5_totals": [], "q18_totals": []}
-    orig = jk.join_insert, jk._probe_n1, gk.groupby_totals
-    cur = [None]
+    rec = {"insert": None, "probe": None, "totals": {label: [] for label in totals_of},
+           "null_key_totals": None}
+    orig = (jk.join_insert, jk._probe_n1, gk.groupby_totals, gk.maybe_grouped_aggregate,
+            gk.maybe_grouped_aggregate_hash)
+    cur, null_keys = [None], [False]
 
     def insert(h, live, bits):
         n_live = int(live.sum())
@@ -1238,17 +1639,34 @@ def capture_calls(sess, queries=(3, 5, 17, 18)):
         return orig[1](jt, h, live, prep)
 
     def totals(*call):
-        if cur[0] in (5, 18):
-            rec[f"q{cur[0]}_totals"].append(call)
+        if cur[0] in rec["totals"]:
+            rec["totals"][cur[0]].append(call)
+        n = call[0].shape[0]
+        if null_keys[0] and (rec["null_key_totals"] is None or n > rec["null_key_totals"][2]):
+            rec["null_key_totals"] = (cur[0], call, n)
         return orig[2](*call)
 
-    jk.join_insert, jk._probe_n1, gk.groupby_totals = insert, probe_n1, totals
+    def grouped(which):
+        def wrapper(page, group_exprs, *args, **kwargs):
+            live = page.live_mask()
+            null_keys[0] = any(
+                v.valid is not None and bool((live & ~v.valid).any())
+                for v in (evaluate(e, page) for e in group_exprs))
+            try:
+                return orig[which](page, group_exprs, *args, **kwargs)
+            finally:
+                null_keys[0] = False
+        return wrapper
+
+    (jk.join_insert, jk._probe_n1, gk.groupby_totals, gk.maybe_grouped_aggregate,
+     gk.maybe_grouped_aggregate_hash) = insert, probe_n1, totals, grouped(3), grouped(4)
     try:
-        for q in queries:
-            cur[0] = q
-            sess.query(QUERIES[q]).rows()
+        for label, text in texts.items():
+            cur[0] = label
+            sess.query(text).rows()
     finally:
-        jk.join_insert, jk._probe_n1, gk.groupby_totals = orig
+        (jk.join_insert, jk._probe_n1, gk.groupby_totals, gk.maybe_grouped_aggregate,
+         gk.maybe_grouped_aggregate_hash) = orig
     return rec
 
 
@@ -1532,22 +1950,25 @@ def join_phase2(sess, checks, dev="cuda", n_max=None, m_max=6_000_859, n_small=1
     from presto_tpu_torch.ops import join_kernel as jk
 
     dev = torch.device(dev)
-    rec = capture_calls(sess)
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+
+    rec = capture_calls(sess, {f"Q{q}": QUERIES[q] for q in JOIN_QUERIES},
+                        totals_of=("Q5", "Q18"))
     q_ins, (h, live, bits), n_live = rec["insert"]
     q_pr, (jt, ph, plive, prep), _ = rec["probe"]
     # the hash-slot group-by call of Q18's outer aggregate, and Q5's dense
     # call (revenue by nation, G 25)
-    (call,) = rec["q18_totals"]
+    (call,) = rec["totals"]["Q18"]
     groupby = [kernel_case("q18_hash_slot", call, exact, {"register": False, "blocks": 1},
                            checks=checks)]
-    (call,) = rec["q5_totals"]
+    (call,) = rec["totals"]["Q5"]
     groupby.append(kernel_case("q5_dense", call, exact, {"register": True}, checks=checks))
-    print(f"phase2 largest build: Q{q_ins} n={h.shape[0]} live={n_live} bits={bits}; largest "
-          f"n1 probe: Q{q_pr} m={ph.shape[0]} live={int(plive.sum())} table slots="
+    print(f"phase2 largest build: {q_ins} n={h.shape[0]} live={n_live} bits={bits}; largest "
+          f"n1 probe: {q_pr} m={ph.shape[0]} live={int(plive.sum())} table slots="
           f"{jt.slots.shape[0]}", flush=True)
-    inserts = [insert_case(f"largest_build_q{q_ins}", h, live, bits)[0]]
-    probes = [probe_case(f"largest_probe_q{q_pr}", jt.slots, ph, plive, jt.bits, prep)]
-    checks.append(("probe", f"largest_probe_q{q_pr}", (jt, ph, plive, prep)))
+    inserts = [insert_case(f"largest_build_{q_ins.lower()}", h, live, bits)[0]]
+    probes = [probe_case(f"largest_probe_{q_pr.lower()}", jt.slots, ph, plive, jt.bits, prep)]
+    checks.append(("probe", f"largest_probe_{q_pr.lower()}", (jt, ph, plive, prep)))
     rng = np.random.default_rng(11)
     nq = h.shape[0]
     # build_table's host work
@@ -1856,10 +2277,10 @@ def profile_runs(runs, warm_ms, out_dir):
 
     os.makedirs(out_dir, exist_ok=True)
     for label, fn in runs.items():
-        summary, events = profile_one(fn, warm_ms[label])
+        summary, prof = profile_one(fn, warm_ms[label])
         print(f"profile {label}", json.dumps(summary), flush=True)
         with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
-            f.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
 
 
 def check_params_layout():
@@ -1973,6 +2394,43 @@ def main() -> int:
     trace_paths(sess, tpch22, analytic)
     print(f"phase3 tpch22 and analytic traced in {time.perf_counter() - t0:.3f} s", flush=True)
 
+    # phase 3, TPC-DS at SF 1: the 103 texts on the card, then the scalar
+    # function library against the CPU over the same host tables, the
+    # counts at 0 just before each path; then one traced warm run of each
+    # in a new process, while a pool of new processes finishes the TPC-DS
+    # texts on the CPU for the comparison
+    import tempfile
+
+    t0 = time.perf_counter()
+    ds_texts = tpcds_texts()
+    pool, cpu_rows = start_cpu_rows(ds_texts)
+    try:
+        ds_sess, ds_cat = make_tpcds_session()
+        _zero_counts()
+        tpcds, outs = tpcds_card_runs(ds_sess)
+        path_counts["tpcds"] = _counts()
+        ds_cpu = Session(ds_cat.with_device("cpu"), device="cpu")
+        _zero_counts()
+        functions = functions_path(ds_sess, ds_cpu)
+        path_counts["functions"] = _counts()
+        del ds_cpu
+        items = [("tpcds", q, ds_texts[q], r["warm_ms"]) for q, r in tpcds.items()
+                 if r["warm_ms"] > TRACE_MIN_WARM_MS]
+        items += [("functions", f, FUNCTION_SQL[f], r["warm_ms"])
+                  for f, r in functions.items()]
+        with tempfile.TemporaryDirectory() as tmp:
+            traces = start_traces(items, tmp)
+            tpcds_compare(tpcds, outs, cpu_rows)
+            tpcds_summary(tpcds, finish_traces(traces))
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"phase3 tpcds and functions launches {json.dumps(path_counts['tpcds'])} "
+          f"{json.dumps(path_counts['functions'])} in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    for k in ("groupby_partials", "join_insert", "join_probe"):
+        if path_counts["tpcds"][k] < 1:
+            raise AssertionError(f"the tpcds path did not launch {k}")
+
     # phase 2: each kernel against its plain version, at the main paths'
     # shapes and at wider cases
     t0 = time.perf_counter()
@@ -1981,6 +2439,11 @@ def main() -> int:
     inserts, probes, groupby = join_phase2(sess, checks)
     cases += groupby
     q1_cases = q1_phase2(q1_page, checks)
+    ds_groupby, ds_insert, ds_probe = tpcds_phase2(ds_sess)
+    cases.append(ds_groupby)
+    inserts.append(ds_insert)
+    probes.append(ds_probe)
+    del ds_sess, ds_cat
     launch_checks = launch_checks_in_child(checks)
     print(f"phase2 done in {time.perf_counter() - t0:.3f} s", flush=True)
 

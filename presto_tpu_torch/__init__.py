@@ -14,7 +14,7 @@ Layer map (as in presto_tpu):
   ops/        relational operators; groupby_kernel.py and join_kernel.py
               wrap the CUDA kernels
   exec/       single-device executor, runtime dynamic filters
-  connectors/ tpch generator (bit-identical), memory tables
+  connectors/ tpch and tpcds generators (bit-identical), memory tables
   csrc/       CUDA C++ kernels (sm_90a), plain C interface
 
 This package imports torch and never jax or presto_tpu.

@@ -1,6 +1,6 @@
-"""Benchmark pipelines and data: TPC-H query texts (tpch_sql, scale),
-on-device data generation (benchgen), the hand-coded Q1/Q6 pipelines
-(handcoded), and the runners (bench, northstar). Reference:
+"""Benchmark pipelines and data: TPC-H query texts (tpch_sql, scale), the
+TPC-DS texts (tpcds_sql), on-device data generation (benchgen), the
+hand-coded Q1/Q6 pipelines (handcoded), and the runners (bench, northstar). Reference:
 presto-benchmark's BenchmarkSuite.java:32 (HandTpchQuery1/HandTpchQuery6)."""
 
 from .handcoded import (  # noqa: F401

@@ -1,1 +1,1 @@
-"""Connectors: the TPC-H generator and in-memory tables."""
+"""Connectors: the TPC-H and TPC-DS generators and in-memory tables."""

@@ -152,7 +152,12 @@ def evaluate(expr: RowExpression, page: Page, n: Optional[int] = None) -> Val:
         return _cast_val(evaluate(expr.args[0], page), expr.type, null_on_failure=True)
 
     vals = [evaluate(a, page) for a in expr.args]
-    return apply_function(name, vals, expr.type)
+    out = apply_function(name, vals, expr.type)
+    if out.data.ndim == 0:
+        # a zero-argument function (pi(), now(), ...): one value for every row
+        data = torch.full((cap,), out.data.item(), dtype=out.data.dtype, device=page.device)
+        out = Val(data, out.valid, out.type, out.dict_id, literal=out.literal)
+    return out
 
 
 # ---------------------------------------------------------------------------

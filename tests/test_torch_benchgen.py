@@ -14,6 +14,7 @@ tolerances: decimals within half a unit of their last digit).
 
 import numpy as np
 import pytest
+import torch
 
 from presto_tpu import types as RT
 from presto_tpu.benchmark import benchgen as rbenchgen
@@ -27,6 +28,10 @@ from presto_tpu_torch.benchmark.tpch_sql import QUERIES
 from presto_tpu_torch.connectors import tpch_device
 from presto_tpu_torch.connectors.tpch_device import DeviceTpchCatalog
 from presto_tpu_torch.session import Session
+
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
 
 SF = 0.01
 
@@ -87,7 +92,10 @@ def catalog():
 
 @pytest.fixture(scope="module")
 def sessions(catalog):
+    """presto_tpu's session without plan and result caches and without its
+    dynamic filters, which only prune rows."""
     ref = RSession(rtpch_device.DeviceTpchCatalog(sf=SF), plan_cache=False, result_cache=False)
+    ref.executor.dynamic_filtering = False
     return Session(catalog, device="cpu"), ref
 
 

@@ -5,8 +5,10 @@ GROUPBY_EDGES, and as one launch per call; the first-match join probe as
 one launch, the table build with at most two host reads; the fused-Q1
 kernel at the edges of its loads and grid, chip_smoke.py's Q1_EDGES, and
 as one launch per call), and the 22 TPC-H queries, the analytic set of
-chip_smoke.py (windows, set operations, ROLLUP, moments, TABLESAMPLE) and
-the hand-coded pipelines on "cuda" against the same on "cpu".
+chip_smoke.py (windows, set operations, ROLLUP, moments, TABLESAMPLE), the
+103 TPC-DS texts and the scalar function families of chip_smoke.py's
+FUNCTION_SQL (both over TPC-DS SF 0.01) and the hand-coded pipelines on
+"cuda" against the same on "cpu".
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -22,7 +24,9 @@ import torch
 
 import chip_smoke
 from presto_tpu_torch.benchmark import handcoded
+from presto_tpu_torch.benchmark.tpcds_sql import QUERIES as TPCDS_QUERIES
 from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+from presto_tpu_torch.connectors.tpcds import TpcdsCatalog
 from presto_tpu_torch.connectors.tpch import TpchCatalog
 from presto_tpu_torch.ops import agg_kernel as ak
 from presto_tpu_torch.ops import groupby_kernel as gk
@@ -35,6 +39,17 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def in_new_process(kind, name, *args):
+    """A torch.profiler check of chip_smoke (kind "one_launch":
+    one_launch_check, "probe": probe_launch_check, "build": build_check)
+    made in a new process on the saved inputs, so that it does not depend
+    on what ran before it: late in a long process torch.profiler loses
+    device records (chip_smoke.launch_checks_in_child). The check raises
+    there if it fails; returns its result."""
+    (res,) = chip_smoke.launch_checks_in_child([(kind, name, args)])
+    return res
 
 
 @pytest.mark.cuda
@@ -90,7 +105,7 @@ def test_kernel_regime_edges_match_plain(cuda, name):
 def test_kernel_call_is_one_launch_without_copies(cuda):
     """A warm call: one kernel on the device and no copy or stream sync."""
     call, _, _ = chip_smoke.groupby_edge_cases(cuda, n_big=200_000)["count_below_n"]
-    res = chip_smoke.one_launch_check("count_below_n", call)
+    res = in_new_process("one_launch", "count_below_n", call)
     assert res["launches"] == 1 and res["memcpy"] == 0 and res["stream_syncs"] == 0
 
 
@@ -154,11 +169,11 @@ def test_probe_n1_is_one_launch_and_build_reads_twice(cuda):
                                     None)}, cuda)
     probe = chip_smoke._page({"k": (rng.integers(0, 100_000, 200_000), "bigint", None, None)},
                              cuda)
-    res = chip_smoke.build_check("build_50k", build, key)
+    res = in_new_process("build", "build_50k", build, key)
     assert res["launches"] == 1 and res["nonzero"] == 0 and res["dtoh"] <= 2
     jt = jk.build_table(build, key)
     h, prep = jk._probe_setup(probe, jt, key)
-    res = chip_smoke.probe_launch_check("probe_200k", jt, h, probe.live_mask(), prep)
+    res = in_new_process("probe", "probe_200k", jt, h, probe.live_mask(), prep)
     assert res["launches"] == 1 and res["memcpy"] == 0 and res["stream_syncs"] == 0
 
 
@@ -243,7 +258,7 @@ def test_q1_call_is_one_launch_without_copies(cuda, q1_page_sf01):
     normalization inside it) and no copy or stream sync."""
     cols = [q1_page_sf01.block(c).data for c in handcoded.Q1_COLUMNS]
     call = (*cols, q1_page_sf01.count, torch.tensor(10471, dtype=torch.int32, device=cuda))
-    res = chip_smoke.one_launch_check("q1_sf01", call, "q1_partials")
+    res = in_new_process("one_launch", "q1_sf01", call, "q1_partials")
     assert res["launches"] == 1 and res["memcpy"] == 0 and res["stream_syncs"] == 0
 
 
@@ -255,3 +270,32 @@ def test_handcoded_on_card_equal_cpu(cuda, pipeline):
     got = fn(handcoded.lineitem_q1_page(0.01, device="cuda")).to_pylist()
     assert (ak.launches > before) == (pipeline == "q1_local_kernel")
     assert got == fn(handcoded.lineitem_q1_page(0.01, device="cpu")).to_pylist()
+
+
+@pytest.fixture(scope="module")
+def tpcds_sf001():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cat = TpcdsCatalog(0.01, device="cuda")
+    return Session(cat, device="cuda"), Session(cat.with_device("cpu"), device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", sorted(TPCDS_QUERIES))
+def test_tpcds_on_card_equal_cpu(cuda, tpcds_sf001, q):
+    """Each TPC-DS text on the card against the port on the CPU over the
+    same host tables, rows in order."""
+    card, cpu = tpcds_sf001
+    got = card.query(TPCDS_QUERIES[q]).rows()
+    want = cpu.query(TPCDS_QUERIES[q]).rows()
+    assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", list(chip_smoke.FUNCTION_SQL))
+def test_functions_on_card_equal_cpu(cuda, tpcds_sf001, family):
+    card, cpu = tpcds_sf001
+    got = card.query(chip_smoke.FUNCTION_SQL[family]).rows()
+    want = cpu.query(chip_smoke.FUNCTION_SQL[family]).rows()
+    assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
+    assert len(got) > 0

@@ -1,0 +1,441 @@
+"""Parity: every scalar function presto_tpu_torch ported from the JAX
+package's long tail (the names that left functions.NOT_PORTED) against
+presto_tpu's function layer directly: `presto_tpu.expr.functions.
+apply_function` and the port's `apply_function` (device="cpu") over the same
+seeded numpy columns with NULLs and the same varchar dictionaries.
+
+Integers, dates, timestamps, booleans, strings and NULLs must be equal;
+doubles within the tolerance of presto_tpu/testing/oracle.py (absolute 1e-6
+or relative 1e-9, NaN equal to NaN). The result types must print the same.
+The clock functions run under one frozen clock in both packages.
+
+Where the JAX package computes a function wrongly (ROADMAP.md queue 3), the
+port is held to an independent value instead: `now()` (the reference returns
+milliseconds in a microsecond TIMESTAMP, as do its aliases
+`current_timestamp` and `localtimestamp`), `xxhash64` and
+`spooky_hash_v2_32`/`_64` (the reference hashes with blake2b), each against
+published values.
+
+A few texts also run through both packages' `Session.query`, so type
+inference and planning are covered too.
+"""
+
+import datetime
+import math
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from presto_tpu import types as RT
+from presto_tpu.expr import functions as RF
+from presto_tpu.page import intern_dictionary as r_intern
+from presto_tpu_torch import types as T
+from presto_tpu_torch.expr import functions as F
+from presto_tpu_torch.page import intern_dictionary as t_intern
+
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
+
+N = 48
+_rng = np.random.default_rng(8)
+
+
+def _nulls(frac=0.15):
+    return _rng.random(N) >= frac
+
+
+def _dict_col(entries, nulls=True):
+    return (_rng.integers(0, len(entries), N).astype(np.int32), _nulls() if nulls else None,
+            "varchar", tuple(sorted(entries)))
+
+
+WORDS = ("alpha", "Beta", "gamma ray", "  padded  ", "PROMO tin", "", "naïve café",
+         "a a a", "mammoth")
+JSON = ('{"a": 1, "b": [1, 2, {"c": "x"}]}', '[1, 2, "3", true, null]', '"str"', "42",
+        "not json", '{"a": {"b": 2.5}}', "[]", "true", '{"b": {"k": [3, 4]}}')
+URLS = ("https://user@Example.com:8080/path/a?x=1&y=2#frag", "http://h/p",
+        "ftp://[::1]:21/x?q", "not a url", "https://a.b/c?x=&x=2", "http://host:bad/x",
+        "https://q.io/a%20b?x=%41+b", "mailto:me@x.org")
+HEX = ("48656C6C6F", "zz", "", "00FF", "0000000000000001", "FFFFFFFFFFFFFFFF",
+       "3FF0000000000000", "40490FDB", "c3a9")
+COLS = {
+    "i": (_rng.integers(-40, 40, N), _nulls(), "bigint", None),
+    "j": (_rng.integers(-9, 9, N), None, "bigint", None),
+    "k": (_rng.integers(-3, 71, N), _nulls(), "bigint", None),
+    "n4": (_rng.integers(1, 6, N), None, "bigint", None),
+    "big": (_rng.integers(-(1 << 63), (1 << 63) - 1, N, dtype=np.int64), _nulls(), "bigint",
+            None),
+    "x": (_rng.normal(0, 6, N), _nulls(), "double", None),
+    "pos": (_rng.uniform(0.05, 40, N), None, "double", None),
+    "u11": (_rng.uniform(-1.3, 1.3, N), None, "double", None),
+    "secs": (_rng.uniform(-2e9, 4e9, N), _nulls(), "double", None),
+    "lat": (_rng.uniform(-90, 90, N), None, "double", None),
+    "lon": (_rng.uniform(-180, 180, N), _nulls(), "double", None),
+    "lat2": (_rng.uniform(-90, 90, N), None, "double", None),
+    "lon2": (_rng.uniform(-180, 180, N), None, "double", None),
+    "succ": (_rng.integers(0, 50, N).astype(np.float64), None, "double", None),
+    "trials": (_rng.integers(50, 90, N).astype(np.float64), _nulls(), "double", None),
+    "dec": (_rng.integers(-10**6, 10**6, N), _nulls(), "decimal(12,2)", None),
+    "ldec": (np.stack([_rng.integers(-(1 << 30), 1 << 30, N), _rng.integers(0, 1 << 32, N)], -1),
+             None, "decimal(38,3)", None),
+    "dt": (_rng.integers(-1200, 21000, N).astype(np.int32), _nulls(), "date", None),
+    "dt2": (_rng.integers(-1200, 21000, N).astype(np.int32), None, "date", None),
+    "ts": (_rng.integers(-10**15, 3 * 10**15, N), _nulls(), "timestamp", None),
+    "ts2": (_rng.integers(-10**15, 3 * 10**15, N), None, "timestamp", None),
+    "ivl": (_rng.integers(-400, 400, N), _nulls(), "interval_day", None),
+    "bool": (_rng.random(N) < 0.5, _nulls(), "boolean", None),
+    "s": _dict_col(WORDS),
+    "s2": _dict_col(("x", "yy", "alpha", "")),
+    "words": _dict_col(("classes", "ponies", "caress", "cats", "running", "hopped", "sing",
+                        "status", "Boxes")),
+    "js": _dict_col(JSON),
+    "url": _dict_col(URLS),
+    "hex": _dict_col(HEX),
+    "b64": _dict_col(("SGVsbG8=", "bad!", "", "w6k=", "YWJj", "_-8=")),
+    "num_s": _dict_col(("101", "ff", "zz", "-7", "", "7FFFFFFFFFFFFFFF")),
+    "dur": _dict_col(("3.5m", "1h", "10 s", "bad", "2d", "0.25ms")),
+    "size": _dict_col(("2.3MB", "1kB", "10B", "x", "1.5 GB", "3YB")),
+    "dates_s": _dict_col(("2020-02-29", "1999-12-31", "x", "2001-01-05", "1582-10-15")),
+    "dtp_s": _dict_col(("2020-02-29 13:45:07", "1999-12-31 00:00:00", "bad", "1969-07-20 20:17:40")),
+    "pdt_s": _dict_col(("2020-02-29 13:45:07", "1969-07-20 20:17:40", "2020/02/29")),
+    "iso_ts": _dict_col(("2020-01-02T03:04:05Z", "2020-01-02 03:04:05", "bad",
+                         "2020-01-02T03:04:05+02:00", "1960-05-06T07:08:09.250")),
+    "color": _dict_col(("red", "#1a2", "nope", "BLUE", "#fff")),
+}
+
+
+def _type(m, name):
+    return m.INTERVAL_DAY if name == "interval_day" else m.parse_type(name)
+
+
+def L(typ, value):
+    """A literal argument."""
+    return ("lit", typ, value)
+
+
+def _ref_val(arg):
+    if isinstance(arg, tuple):
+        _, typ, value = arg
+        t = _type(RT, typ)
+        if typ == "varchar":
+            return RF.Val(jnp.zeros(N, jnp.int32), None, t, r_intern((value,)), literal=value)
+        return RF.Val(jnp.full(N, value, t.storage_dtype), None, t, literal=value)
+    data, valid, typ, d = COLS[arg]
+    return RF.Val(jnp.asarray(data), None if valid is None else jnp.asarray(valid),
+                  _type(RT, typ), None if d is None else r_intern(d))
+
+
+def _port_val(arg):
+    if isinstance(arg, tuple):
+        _, typ, value = arg
+        t = _type(T, typ)
+        if typ == "varchar":
+            return F.Val(torch.zeros(N, dtype=torch.int32), None, t, t_intern((value,)),
+                         literal=value)
+        return F.Val(torch.full((N,), value, dtype=t.storage_dtype), None, t, literal=value)
+    data, valid, typ, d = COLS[arg]
+    return F.Val(torch.from_numpy(np.array(data)), None if valid is None else
+                 torch.from_numpy(np.array(valid)), _type(T, typ),
+                 None if d is None else t_intern(d))
+
+
+UNITS = ("day", "week", "month", "quarter", "year")
+# name -> list of argument lists (column names and literals)
+CASES = {
+    "acosh": [["pos"]], "asinh": [["x"]], "atanh": [["u11"]], "atan2": [["x", "pos"]],
+    "cbrt": [["x"]], "cot": [["x"]], "expm1": [["x"]], "log1p": [["x"]],
+    "log": [["pos", "x"], ["n4", "pos"]], "pow": [["x", "j"]],
+    "ceiling": [["dec"], ["x"]], "truncate": [["x"], ["dec"], ["ldec"]],
+    "width_bucket": [["x", L("double", -10.0), L("double", 10.0), "n4"]],
+    "greatest": [["i", "j"], ["x", "i"], ["dec", "j"], ["s", "s2"]],
+    "least": [["i", "j"], ["x", "i"], ["dec", "j"], ["s", "s2"]],
+    "e": [[]], "pi": [[]], "infinity": [[]], "nan": [[]],
+    "wilson_interval_lower": [["succ", "trials", L("double", 1.96)]],
+    "wilson_interval_upper": [["succ", "trials", L("double", 1.96)]],
+    "great_circle_distance": [["lat", "lon", "lat2", "lon2"]],
+    "rgb": [["i", "k", "j"]],
+    "bitwise_and": [["big", "i"]], "bitwise_or": [["big", "i"]], "bitwise_xor": [["big", "i"]],
+    "bitwise_not": [["big"]],
+    "bitwise_left_shift": [["big", "k"]], "bitwise_right_shift": [["big", "k"]],
+    "bitwise_arithmetic_shift_right": [["big", "k"]],
+    "bitwise_logical_shift_right": [["big", "k"]],
+    "bit_count": [["big", L("bigint", 64)], ["big", L("bigint", 9)]],
+    "to_base": [[L("bigint", -255), L("bigint", 16)], [L("bigint", 0), L("bigint", 2)]],
+    "from_base": [["num_s", L("bigint", 16)], ["num_s", L("bigint", 2)]],
+    # strings
+    "reverse": [["s"]], "ltrim": [["s"]], "rtrim": [["s"]], "lcase": [["s"]], "ucase": [["s"]],
+    "char_length": [["s"]], "character_length": [["s"]], "codepoint": [["s"]],
+    "replace": [["s", L("varchar", "a"), L("varchar", "@@")], ["s", L("varchar", "a")]],
+    "lpad": [["s", L("bigint", 7), L("varchar", "*-")], ["s", L("bigint", 3)]],
+    "rpad": [["s", L("bigint", 7), L("varchar", "*-")], ["s", L("bigint", 3)]],
+    "chr": [[L("bigint", 233)]],
+    "levenshtein_distance": [["s", L("varchar", "gamma")]],
+    "hamming_distance": [["s", L("varchar", "alpha")]],
+    "position": [["s", L("varchar", "a")]], "index": [["s", L("varchar", "a")]],
+    "strrpos": [["s", L("varchar", "a")]],
+    "translate": [["s", L("varchar", "ae "), L("varchar", "4")]],
+    "normalize": [["s"], ["s", L("varchar", "NFKD")]],
+    "concat_ws": [[L("varchar", "-"), "s", "s2"], [L("varchar", ", "), "s2"]],
+    "split_part": [["s", L("varchar", " "), L("bigint", 2)], ["s", L("varchar", "a"), L("bigint", 1)]],
+    "regexp_like": [["s", L("varchar", "^[a-z]+$")]],
+    "regexp_replace": [["s", L("varchar", "(a)"), L("varchar", "<$1>")], ["s", L("varchar", "m+")]],
+    "regexp_extract": [["s", L("varchar", "(a)(m+)?"), L("bigint", 2)], ["s", L("varchar", "a.")]],
+    "regexp_count": [["s", L("varchar", "a")]],
+    "char2hexint": [["s"]], "word_stem": [["words"]],
+    "repeat": [["s", L("bigint", 3)], ["i", L("bigint", 2)]],
+    "typeof": [["dec"], ["s"], ["ts"]],
+    "render": [["bool"]], "color": [["color"]],
+    "bar": [[L("double", 0.37), L("bigint", 12)]],
+    "human_readable_seconds": [[L("bigint", 100000)], [L("bigint", 0)]],
+    # digests and encodings
+    "md5": [["s"]], "sha1": [["s"]], "sha256": [["s"]], "sha512": [["s"]], "crc32": [["s"]],
+    "to_base64": [["s"]], "to_base64url": [["s"]], "to_hex": [["s"]],
+    "from_base64": [["b64"]], "from_base64url": [["b64"]], "from_hex": [["hex"]],
+    "to_utf8": [["s"]], "from_utf8": [["s"]],
+    "hmac_md5": [["s", L("varchar", "key")]], "hmac_sha1": [["s", L("varchar", "key")]],
+    "hmac_sha256": [["s", L("varchar", "key")]], "hmac_sha512": [["s", L("varchar", "key")]],
+    "to_big_endian_64": [[L("bigint", -2)]], "from_big_endian_64": [["hex"]],
+    "to_ieee754_32": [[L("double", 3.14159)]], "to_ieee754_64": [[L("double", -0.1)]],
+    "from_ieee754_32": [["hex"]], "from_ieee754_64": [["hex"]],
+    # JSON and URL
+    "json_extract": [["js", L("varchar", "$.b[2]")], ["js", L("varchar", "$.a")]],
+    "json_extract_scalar": [["js", L("varchar", "$.a")], ["js", L("varchar", "$.b[1]")]],
+    "json_array_get": [["js", L("bigint", 1)], ["js", L("bigint", -1)]],
+    "json_array_length": [["js"]], "json_format": [["js"]], "json_parse": [["js"]],
+    "is_json_scalar": [["js"]],
+    "json_size": [["js", L("varchar", "$.b")], ["js", L("varchar", "$")]],
+    "json_array_contains": [["js", L("bigint", 1)], ["js", L("varchar", "3")],
+                            ["js", L("boolean", True)]],
+    "url_extract_host": [["url"]], "url_extract_protocol": [["url"]],
+    "url_extract_path": [["url"]], "url_extract_query": [["url"]],
+    "url_extract_fragment": [["url"]], "url_extract_port": [["url"]],
+    "url_extract_parameter": [["url", L("varchar", "x")]],
+    "url_encode": [["s"]], "url_decode": [["url"]],
+    # dates and times
+    "date_trunc": [[L("varchar", u), "dt"] for u in UNITS] + [[L("varchar", "hour"), "ts"]],
+    "date_add": [[L("varchar", u), "i", "dt"] for u in UNITS] + [[L("varchar", "minute"), "i", "ts"]],
+    "date_diff": [[L("varchar", u), "dt", "dt2"] for u in UNITS] + [[L("varchar", "hour"), "ts", "ts2"]],
+    # one pattern each (the JAX package builds a 335,371-day table per
+    # pattern); every specifier is held on sampled days below
+    "date_format": [["dt", L("varchar", "%Y-%m-%d")], ["ts", L("varchar", "%Y-%m-%d")]],
+    "format_datetime": [["dt", L("varchar", "yyyy-MM-dd")], ["ts", L("varchar", "yyyy-MM-dd")]],
+    "to_iso8601": [["dt"]],
+    "date_parse": [["dtp_s", L("varchar", "%Y-%m-%d %H:%i:%s")]],
+    "parse_datetime": [["pdt_s", L("varchar", "yyyy-MM-dd HH:mm:ss")]],
+    "from_iso8601_date": [["dates_s"]], "from_iso8601_timestamp": [["iso_ts"]],
+    "from_unixtime": [["secs"]], "to_unixtime": [["ts"], ["dt"]],
+    "to_milliseconds": [["ivl"]],
+    "hour": [["ts"], ["dt"]], "minute": [["ts"], ["dt"]], "second": [["ts"], ["dt"]],
+    "millisecond": [["ts"]],
+    "week": [["dt"]], "week_of_year": [["dt"]], "year_of_week": [["dt"], ["ts"]], "yow": [["dt"]],
+    "last_day_of_month": [["dt"]],
+    "timezone_hour": [["ts"]], "timezone_minute": [["ts"]],
+    "parse_duration": [["dur"]], "parse_presto_data_size": [["size"]],
+    "current_date": [[]], "current_timezone": [[]],
+}
+# computed wrongly by the JAX package: held to independent values below
+INDEPENDENT = ("now", "current_timestamp", "localtimestamp", "xxhash64", "spooky_hash_v2_32",
+               "spooky_hash_v2_64")
+PORTED = sorted(set(CASES) | set(INDEPENDENT))
+
+FROZEN_S = 1_700_000_123.456789
+FROZEN_DAY = datetime.date(2023, 11, 14)
+
+
+class _FrozenDate(datetime.date):
+    @classmethod
+    def today(cls):
+        return cls(FROZEN_DAY.year, FROZEN_DAY.month, FROZEN_DAY.day)
+
+
+@pytest.fixture
+def frozen_clock(monkeypatch):
+    """One clock for both packages: time.time and datetime.date.today."""
+    monkeypatch.setattr(time, "time", lambda: FROZEN_S)
+    monkeypatch.setattr(datetime, "date", _FrozenDate)
+
+
+def _rows(v, n=N):
+    """(valid mask, values) of a Val from either package, as numpy."""
+    data = np.asarray(v.data) if not isinstance(v.data, torch.Tensor) else v.data.numpy()
+    if data.size == 1:  # a constant
+        data = np.full(n, data.item())
+    valid = np.ones(n, bool) if v.valid is None else (
+        np.asarray(v.valid) if not isinstance(v.valid, torch.Tensor) else v.valid.numpy())
+    valid = np.broadcast_to(valid, (n,))
+    if v.dictionary is not None:
+        d = v.dictionary
+        return valid, [d[int(c)] if ok else None for c, ok in zip(data.reshape(n, -1)[:, 0], valid)]
+    return valid, data
+
+
+def _close(a, b):
+    if math.isnan(a) or math.isnan(b):
+        return math.isnan(a) and math.isnan(b)
+    if math.isinf(a) or math.isinf(b):
+        return a == b
+    return abs(a - b) <= max(1e-6, 1e-9 * max(abs(a), abs(b)))
+
+
+def _assert_same(name, got, want, out_type):
+    gv, gd = _rows(got)
+    wv, wd = _rows(want)
+    assert (gv == wv).all(), (name, gv, wv)
+    if isinstance(out_type, T.ArrayType):
+        gl, wl = got.lengths.numpy(), np.asarray(want.lengths)
+        assert (gl == wl).all(), (name, gl, wl)
+        assert (np.asarray(got.data.numpy()) == np.asarray(want.data)).all(), name
+        ge = None if got.elem_valid is None else got.elem_valid.numpy()
+        we = None if want.elem_valid is None else np.asarray(want.elem_valid)
+        assert (ge is None) == (we is None) and (ge is None or (ge == we).all()), name
+        return
+    for r in np.flatnonzero(gv):
+        g, w = gd[r], wd[r]
+        if isinstance(out_type, (T.DoubleType, T.RealType)):
+            assert _close(float(g), float(w)), (name, r, g, w)
+        elif isinstance(out_type, T.VarcharType):
+            assert g == w, (name, r, g, w)
+        else:
+            assert np.array_equal(np.asarray(g), np.asarray(w)), (name, r, g, w)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_function_equals_reference(name, frozen_clock):
+    assert name not in F.NOT_PORTED
+    for args in CASES[name]:
+        rvals = [_ref_val(a) for a in args]
+        pvals = [_port_val(a) for a in args]
+        rt = RF.infer_call_type(name, tuple(v.type for v in rvals))
+        pt = F.infer_call_type(name, tuple(v.type for v in pvals))
+        assert str(pt) == str(rt), (name, args)
+        want = RF.apply_function(name, rvals, rt)
+        got = F.apply_function(name, pvals, pt)
+        assert str(got.type) == str(want.type), (name, args)
+        if not args:  # a constant: its literal and its one value
+            assert got.literal == want.literal or (
+                isinstance(got.literal, float) and _close(got.literal, want.literal)), name
+        _assert_same(f"{name}{args}", got, want, pt)
+
+
+MYSQL_FULL = "%Y-%m-%d %a %b %j %e %c %y %W %M %H:%i:%s %%"
+JODA_FULL = "yyyy-MM-dd yy EEE EEEE MMM MMMM D HH:mm:ss.SSS 'at' hh a"
+
+
+def test_day_tables_equal_the_reference_formatters():
+    """Every specifier of the two pattern syntaxes: the port's day table
+    (built with numpy string arrays) against the JAX package's own
+    per-day formatters (`_mysql_format_date`, and strftime under its
+    `_joda_to_strptime`) on 3,000 sampled days and the window's ends."""
+    from presto_tpu.expr import functions_ext as RX
+
+    rng = np.random.default_rng(3)
+    days = np.concatenate([[0, F._DATE_FMT_N - 1], rng.integers(0, F._DATE_FMT_N, 3000)])
+    base = datetime.date(1582, 10, 15)
+    for fmt, specs, what, ref in (
+            (MYSQL_FULL, F._MYSQL_SPECS, "date_format", lambda d: RF._mysql_format_date(d, MYSQL_FULL)),
+            (F.functions_ext._joda_to_strptime(JODA_FULL), F._STRFTIME_SPECS, "format_datetime",
+             lambda d: d.strftime(RX._joda_to_strptime(JODA_FULL)))):
+        dictionary, codes = F._date_format_table(fmt, specs, what)
+        for i in days:
+            assert dictionary[codes[i]] == ref(base + datetime.timedelta(days=int(i))), (fmt, i)
+        assert list(dictionary) == sorted(set(dictionary))
+
+
+def test_now_is_microseconds(frozen_clock):
+    """now() / current_timestamp / localtimestamp: TIMESTAMP values are
+    microseconds since the epoch here; the JAX package returns milliseconds
+    (int(time.time() * 1000)), 1,700,000,123,456 for the frozen clock."""
+    assert RF.apply_function("now", [], RT.TIMESTAMP).literal == 1_700_000_123_456
+    for name in ("now", "current_timestamp", "localtimestamp"):
+        got = F.apply_function(name, [], T.TIMESTAMP)
+        assert got.literal == 1_700_000_123_456_789 and got.type == T.TIMESTAMP
+    day = F.apply_function("current_date", [], T.DATE).literal
+    assert day == (FROZEN_DAY - datetime.date(1970, 1, 1)).days == 19675
+
+
+def test_xxhash64_published_values():
+    """xxhash64 over the utf8 bytes against the XXH64 reference vectors
+    (seed 0); the JAX package hashes with an 8-byte blake2b instead."""
+    vectors = {"": "ef46db3751d8e999", "a": "d24ec4f1a98c6e5b", "abc": "44bc2cf5ad770999",
+               "Nobody inspects the spammish repetition": "fbcea83c8a378bf1",
+               "x" * 100: format(F.functions_ext.xxhash64(b"x" * 100), "016x")}
+    d = tuple(sorted(vectors))
+    v = F.Val(torch.arange(len(d), dtype=torch.int32), None, T.VARCHAR, t_intern(d))
+    got = F.apply_function("xxhash64", [v], T.VARCHAR)
+    assert [got.dictionary[int(c)] for c in got.data] == [vectors[s] for s in d]
+    ref = RF.apply_function("xxhash64", [RF.Val(jnp.arange(len(d), dtype=jnp.int32), None,
+                                                RT.VARCHAR, r_intern(d))], RT.VARCHAR)
+    assert ref.dictionary[int(ref.data[1])] != vectors["a"]
+
+
+# SpookyHash V2's own test table (SpookyV2 TestResults): Hash32 with seed 0
+# of the first n bytes of buf[i] = i + 128, n = 0..15
+SPOOKY32 = (0x6BF50919, 0x70DE1D26, 0xA2B37298, 0x35BC5FBF, 0x8223B279, 0x5BCB315E,
+            0x53FE88A1, 0xF9F1A233, 0xEE193982, 0x54F86F29, 0xC8772D36, 0x9ED60886,
+            0x5F23D1DA, 0x1ED9F474, 0xF2EF0C89, 0x83EC01F9)
+
+
+def test_spooky_hash_v2_published_values():
+    """spooky_hash_v2_32/_64 are SpookyHash V2 of the utf8 bytes (Hash32
+    unsigned, Hash64 as a signed bigint), against the algorithm's published
+    table; the JAX package returns an 8-byte blake2b instead."""
+    h = F.functions_ext.spooky_hash_v2
+    buf = bytes(i + 128 for i in range(16))
+    assert [h(buf[:n]) & 0xFFFFFFFF for n in range(16)] == list(SPOOKY32)
+    assert h(bytes(range(256)) * 2) != h(bytes(range(256)) * 2 + b"x")  # the long path
+    d = tuple(sorted(WORDS))
+    v = F.Val(torch.arange(len(d), dtype=torch.int32), None, T.VARCHAR, t_intern(d))
+    for name, want in (("spooky_hash_v2_32", lambda x: x & 0xFFFFFFFF),
+                       ("spooky_hash_v2_64", lambda x: x - (1 << 64) if x >> 63 else x)):
+        got = F.apply_function(name, [v], T.BIGINT).data.tolist()
+        assert got == [want(h(s.encode())) for s in d], name
+
+
+def test_every_scalar_name_left_not_ported_is_ported_here():
+    """The 142 names this slice took out of NOT_PORTED each have a case
+    here; what stays is the array, map, geometry and *_cdf functions."""
+    assert len(PORTED) == 142
+    left = set(F.NOT_PORTED)
+    assert len(left) == 64 and not left & set(PORTED)
+    for name in left:
+        with pytest.raises(F.NotPortedError, match="not ported yet"):
+            F.infer_call_type(name, (T.DOUBLE, T.DOUBLE, T.DOUBLE))
+
+
+SQL = {
+    "dates": "select o_orderkey, date_add('month', 1, o_orderdate), date_diff('day', "
+             "o_orderdate, date '1998-01-01'), date_trunc('quarter', o_orderdate), "
+             "date_format(o_orderdate, '%Y-%m-%d'), week(o_orderdate), year_of_week(o_orderdate) "
+             "from orders where o_orderkey < 200 order by o_orderkey",
+    "strings": "select n_nationkey, lpad(n_name, 12, '.'), reverse(n_name), replace(n_name, "
+               "'A', 'a'), split_part(n_comment, ' ', 2), regexp_like(n_name, '^[A-F]'), "
+               "md5(n_name), greatest(n_name, 'GERMANY') from nation order by n_nationkey",
+    "numbers": "select c_custkey, bitwise_and(c_custkey, 12), width_bucket(c_acctbal, 0, "
+               "10000, 5), truncate(c_acctbal), log(2, c_custkey), pi() * c_nationkey "
+               "from customer where c_custkey < 100 order by c_custkey",
+}
+
+
+@pytest.fixture(scope="module")
+def sessions():
+    import chip_smoke
+    from presto_tpu.connectors.tpch import TpchCatalog as RCatalog
+    from presto_tpu.session import Session as RSession
+    from presto_tpu_torch.connectors.tpch import TpchCatalog
+    from presto_tpu_torch.session import Session
+
+    ref = RSession(RCatalog(0.01), plan_cache=False, result_cache=False)
+    ref.executor.dynamic_filtering = False
+    return Session(TpchCatalog(0.01, device="cpu"), device="cpu"), ref, chip_smoke.row_diff
+
+
+@pytest.mark.parametrize("name", sorted(SQL))
+def test_query_with_functions_equals_reference(name, sessions):
+    port, ref, row_diff = sessions
+    got = port.query(SQL[name]).rows()
+    want = ref.query(SQL[name]).rows()
+    assert len(got) > 0 and row_diff(got, want) is None, row_diff(got, want)

@@ -34,6 +34,10 @@ from presto_tpu_torch.ops import groupby_kernel as gk
 from presto_tpu_torch.ops.aggregate import AggSpec
 from presto_tpu_torch.page import Block, Page
 
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
+
 N = 20_000  # two of the reference kernel's 16,384-row blocks
 
 

@@ -14,6 +14,10 @@ import torch
 
 from presto_tpu_torch.ops import groupby_kernel as gk
 
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
+
 # GroupbyParams under the C ABI of x86-64 and CUDA (natural alignment):
 # six pointers, n, G, K, aligned, int kind[128], then pointer chan[128]
 # aligned to 8 bytes

@@ -23,6 +23,10 @@ from presto_tpu.ops.pallas_agg import q1_partial_sums as r_q1_partial_sums
 from presto_tpu_torch.benchmark import bench, handcoded
 from presto_tpu_torch.ops import agg_kernel
 
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
+
 CUTOFF = 10471  # 1998-09-02
 
 

@@ -45,6 +45,10 @@ from presto_tpu_torch.ops.aggregate import AggSpec
 from presto_tpu_torch.ops.hashing import hash_rows_values
 from presto_tpu_torch.page import Block, Page
 
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
+
 
 def _pages(cols, count=None):
     """The same columns as a reference page and a port page on the CPU:

@@ -41,6 +41,10 @@ from presto_tpu_torch.page import Block, Page
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.session import Session
 
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
+
 
 def _pages(cols, count=None):
     """The same columns as a reference page and a port page on the CPU:

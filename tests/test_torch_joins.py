@@ -9,6 +9,7 @@ probe) cover the rest of the join nodes.
 """
 
 import pytest
+import torch
 
 from presto_tpu.benchmark.tpch_sql import QUERIES
 from presto_tpu.connectors.tpch import TpchCatalog as RCatalog
@@ -18,6 +19,10 @@ from presto_tpu_torch.exec import executor as ex
 from presto_tpu_torch.ops import groupby_kernel as gk
 from presto_tpu_torch.ops import join_kernel as jk
 from presto_tpu_torch.session import Session
+
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
 
 STAR_SQL = (
     "select count(*) c, sum(l_extendedprice + o_totalprice + s_acctbal) v from lineitem "
@@ -31,10 +36,12 @@ TABLES = {3: 2, 5: 5, 17: 2, 18: 3, 4: 1, 13: 1, 21: 7, 22: 1}
 
 @pytest.fixture(scope="module")
 def sessions():
-    return (
-        Session(TpchCatalog(0.01, device="cpu"), device="cpu"),
-        RSession(RCatalog(0.01), plan_cache=False, result_cache=False),
-    )
+    """The port's session, and presto_tpu's without plan and result caches
+    and without its dynamic filters: they only prune rows, and off they
+    halve the kernels its jit compiles for a join query."""
+    ref = RSession(RCatalog(0.01), plan_cache=False, result_cache=False)
+    ref.executor.dynamic_filtering = False
+    return Session(TpchCatalog(0.01, device="cpu"), device="cpu"), ref
 
 
 @pytest.mark.parametrize("q", [3, 5, 17, 18, 4, 13, 21, 22])

@@ -12,6 +12,7 @@ over array values, which reads the accumulator.
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from presto_tpu import page as rpage
@@ -23,6 +24,10 @@ from presto_tpu_torch.connectors.memory import MemoryCatalog
 from presto_tpu_torch.connectors.tpch import TpchCatalog
 from presto_tpu_torch.page import page_from_reference
 from presto_tpu_torch.session import Session
+
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
 
 
 def _ref(catalog):

@@ -7,6 +7,7 @@ everything is exact (float sums agree within 1e-12 relative).
 
 import numpy as np
 import pytest
+import torch
 
 from presto_tpu import types as RT
 from presto_tpu.expr import ir as rir
@@ -25,6 +26,10 @@ from presto_tpu_torch.ops import hashing
 from presto_tpu_torch.ops import keypack as kp
 from presto_tpu_torch.ops import sort
 from presto_tpu_torch.page import Block, Page
+
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
 
 N = 300
 

@@ -25,6 +25,10 @@ from presto_tpu_torch.page import (
     round_capacity,
 )
 
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

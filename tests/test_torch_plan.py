@@ -11,6 +11,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from presto_tpu.benchmark.tpch_sql import QUERIES as RQUERIES
 from presto_tpu.connectors.tpch import TpchCatalog as RCatalog
@@ -21,15 +22,20 @@ from presto_tpu_torch.connectors.tpch import TpchCatalog
 from presto_tpu_torch.plan.nodes import plan_tree_str
 from presto_tpu_torch.session import Session
 
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module")
 def sessions():
-    return (
-        Session(TpchCatalog(0.01, device="cpu"), device="cpu"),
-        RSession(RCatalog(0.01), plan_cache=False, result_cache=False),
-    )
+    """presto_tpu's session without plan and result caches and without its
+    dynamic filters (a runtime feature: the plans are the same)."""
+    ref = RSession(RCatalog(0.01), plan_cache=False, result_cache=False)
+    ref.executor.dynamic_filtering = False
+    return Session(TpchCatalog(0.01, device="cpu"), device="cpu"), ref
 
 
 @pytest.mark.parametrize("q", sorted(RQUERIES))

@@ -14,6 +14,10 @@ import torch
 
 from presto_tpu_torch.ops import agg_kernel as ak
 
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
+
 # Q1Params under the C ABI of x86-64 and CUDA: twelve pointers, then n
 C_LAYOUT = {
     "qty": 0, "price": 8, "disc": 16, "tax": 24, "rf": 32, "ls": 40, "ship": 48, "count": 56,

@@ -16,6 +16,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from presto_tpu import page as rpage
@@ -29,6 +30,10 @@ from presto_tpu_torch.exec import executor as ex
 from presto_tpu_torch.ops import filter as port_filter
 from presto_tpu_torch.page import page_from_reference
 from presto_tpu_torch.session import Session
+
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
 
 TPCH_SQL = {
     "union_two_dictionaries": "select n_name from nation union select r_name from region",

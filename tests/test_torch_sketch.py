@@ -12,12 +12,17 @@ approx_percentile (ops/qsketch.py) is held bin for bin.
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from presto_tpu.connectors.tpch import TpchCatalog as RCatalog
 from presto_tpu.session import Session as RSession
 from presto_tpu_torch.connectors.tpch import TpchCatalog
 from presto_tpu_torch.session import Session
+
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
 
 SQL = {
     "distinct_global": (

@@ -11,6 +11,7 @@ too, and must return rows.
 """
 
 import pytest
+import torch
 
 import chip_smoke
 from presto_tpu.benchmark.tpch_sql import QUERIES
@@ -18,6 +19,10 @@ from presto_tpu.connectors.tpch import TpchCatalog as RCatalog
 from presto_tpu.session import Session as RSession
 from presto_tpu_torch.connectors.tpch import TpchCatalog
 from presto_tpu_torch.session import Session
+
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
 
 TEXTS = {q: QUERIES[q] for q in (2, 7, 8, 9, 10, 11, 12, 14, 15, 16, 19, 20)}
 TEXTS["q20_variant"] = chip_smoke.q20_variant(QUERIES[20])

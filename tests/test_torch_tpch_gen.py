@@ -8,9 +8,14 @@ device="cpu" must carry exactly the host table.
 
 import numpy as np
 import pytest
+import torch
 
 from presto_tpu.connectors import tpch as rtpch
 from presto_tpu_torch.connectors import tpch
+
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
 
 SF = 0.01
 

@@ -19,6 +19,7 @@ tolerance (chip_smoke.row_diff).
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from presto_tpu import page as rpage
@@ -36,6 +37,10 @@ from presto_tpu_torch.ops import sort as psort
 from presto_tpu_torch.ops import window as pwin
 from presto_tpu_torch.page import page_from_reference
 from presto_tpu_torch.session import Session
+
+# one torch thread: the suite runs in parallel worker processes
+# (pytest-xdist), and a thread per core in each oversubscribes the host
+torch.set_num_threads(1)
 
 SF = 0.002
 
