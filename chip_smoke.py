@@ -52,6 +52,18 @@ one SELECT per family of the scalar function library (FUNCTION_SQL) held
 against the CPU over the same host tables. One warm run of every
 `tpcds` text above 20 ms and of every `functions` family is traced in a
 new process (`start_traces`), while the CPU side finishes.
+Then `collections` on the TPC-H SF 1 session (COLLECTION_SQL): ARRAY and
+MAP values, C1 array_agg into 10,000 suppliers (the collection-width
+retry 128 -> 1,024, required) unnested back with ordinality, C2 the map
+aggregates over customer join orders read back by the map functions, C3
+lambdas over ~100,000 per-customer arrays, C4 split and unnest with
+ordinality over part with the array functions, C5 a regression per
+return flag and C5r its models applied to lineitem, C6 a nested-loop
+spatial join of 25 triangles and 150,000 points, C7 the 11 CDFs and the
+sketch states as rows, each cold then twice warm and held against the
+same text through the port on the CPU (computed in the `tpcds` pool),
+C1, C5 and C6 also against numpy; the path must launch kernels 2 and 3,
+and one warm run of each text is traced with the others.
 Phase 2 holds each kernel against its plain PyTorch version on the card:
 the group-by kernel at Q1's, Q5's and Q18's (hash-slot) calls, two wider
 G 64 cases and the edges of its regimes and grid (GROUPBY_EDGES), and
@@ -496,23 +508,29 @@ def row_diff(got, want, ordered=True):
     the oracle's tolerance, every other value (integers, decimals, dates,
     strings, NULL) exactly and of the same Python type. Unordered rows are
     sorted first."""
-    import math
-
     if not ordered:
         got, want = sorted(got, key=_row_key), sorted(want, key=_row_key)
     if len(got) != len(want):
         return f"{len(got)} rows != {len(want)}: {got[:3]} / {want[:3]}"
     for i, (g, w) in enumerate(zip(got, want)):
-        if len(g) != len(w):
-            return f"row {i}: {g} != {w}"
-        for a, b in zip(g, w):
-            if isinstance(a, float) and isinstance(b, float):
-                if (math.isnan(a) and math.isnan(b)) or _value_close(a, b):
-                    continue
-            elif type(a) is type(b) and a == b:
-                continue
+        if len(g) != len(w) or not all(same_value(a, b) for a, b in zip(g, w)):
             return f"row {i}: {g} != {w}"
     return None
+
+
+def same_value(a, b) -> bool:
+    """row_diff's equality of one value: doubles within the oracle's
+    tolerance (NaN equal to NaN), every other value exactly and of the same
+    Python type; lists element by element in order, dicts key by key."""
+    import math
+
+    if isinstance(a, float) and isinstance(b, float):
+        return (math.isnan(a) and math.isnan(b)) or _value_close(a, b)
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(same_value(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(same_value(a[k], b[k]) for k in a)
+    return type(a) is type(b) and a == b
 
 
 def q20_variant(text):
@@ -1227,6 +1245,8 @@ def tpcds_texts():
 
 
 _CPU_SESSION = None
+_CPU_TPCH = None  # a worker's TPC-H session, made on its first TPC-H text
+_TPCH_SF = 1.0
 
 
 def _cpu_worker_init(sf):
@@ -1240,25 +1260,38 @@ def _cpu_worker_init(sf):
     _CPU_SESSION = Session(TpcdsCatalog(sf, device="cpu"), device="cpu")
 
 
-def _cpu_rows(label, text):
+def _cpu_rows(label, text, tpch=False):
+    global _CPU_TPCH
+    sess = _CPU_SESSION
+    if tpch:
+        if _CPU_TPCH is None:
+            from presto_tpu_torch.connectors.tpch import TpchCatalog
+            from presto_tpu_torch.session import Session
+
+            _CPU_TPCH = Session(TpchCatalog(_TPCH_SF, device="cpu"), device="cpu")
+        sess = _CPU_TPCH
     t = time.perf_counter()
-    rows = _CPU_SESSION.query(text).rows()
+    rows = sess.query(text).rows()
     return label, rows, (time.perf_counter() - t) * 1e3
 
 
-def start_cpu_rows(texts, sf=TPCDS_SF, workers=CPU_WORKERS):
+def start_cpu_rows(texts, sf=TPCDS_SF, workers=CPU_WORKERS, tpch_texts=None):
     """The port's rows of every text on the CPU, computed in `workers` new
     processes (spawned, one torch thread each; each generates the tables
     its queries read, from the same seeds, so they are the card's tables)
-    while this process drives the card. Returns (pool, {label: future})."""
+    while this process drives the card: the TPC-DS `texts` and, first, the
+    `tpch_texts` over TPC-H at SF 1. Returns (pool, {label: future})."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
                                initializer=_cpu_worker_init, initargs=(sf,))
+    futures = {label: pool.submit(_cpu_rows, label, text, True)
+               for label, text in (tpch_texts or {}).items()}
     order = [q for q in CPU_SLOW_FIRST if q in texts] + [q for q in texts
                                                          if q not in CPU_SLOW_FIRST]
-    return pool, {label: pool.submit(_cpu_rows, label, texts[label]) for label in order}
+    futures.update({label: pool.submit(_cpu_rows, label, texts[label]) for label in order})
+    return pool, futures
 
 
 def weak_checks(texts, report):
@@ -1437,6 +1470,212 @@ def functions_path(sess, cpu_sess, runs=3):
     return report
 
 
+# -- phase 3: collections (ARRAY and MAP values) at TPC-H SF 1 --------------
+
+def _nation_triangles():
+    """One triangle per nation as WKT coordinate text, picked by
+    n_nationkey + 1 from an array literal: the points (x, y) of C6 are
+    (c_acctbal + 1000, c_custkey % 1000), x in [0, 11000), and neighbouring
+    triangles overlap."""
+    tri = [f"'{k * 440} 0, {k * 440 + 880} 0, {k * 440 + 440} 999, {k * 440} 0'"
+           for k in range(25)]
+    return "array[" + ", ".join(tri) + "]"
+
+
+# the `collections` path: ARRAY and MAP values on TPC-H SF 1 (C1-C7)
+COLLECTION_SQL = {
+    # array_agg into 10,000 groups of ~600 (the width retry 128 -> 1,024),
+    # unnested back with ordinality: the element order within a group is
+    # the rows' order, so sum(k * o) holds it
+    "C1": "select count(*), sum(k), sum(k * o), count(distinct s) from (select l_suppkey s, "
+          "array_agg(l_orderkey) a from lineitem group by l_suppkey) q "
+          "cross join unnest(a) with ordinality as u(k, o)",
+    # the map aggregates over customer join orders by nation, each map read
+    # back by element_at, map_keys, map_values and transform_values
+    "C2": "with j as (select c_nationkey n, c_mktsegment seg, o_orderstatus st, "
+          "o_orderpriority pr, o_totalprice tp from customer join orders on c_custkey = o_custkey), "
+          "h as (select n, histogram(pr) hp, map_agg(st, pr) ma, numeric_histogram(10, tp) nh "
+          "from j group by n), "
+          "mm as (select n, multimap_agg(st, pr) mm from (select distinct n, st, pr from j) d "
+          "group by n), "
+          "mu as (select n, map_union(m) mu from (select n, seg, map_agg(st, c) m from "
+          "(select n, seg, st, count(*) c from j group by n, seg, st) x group by n, seg) y "
+          "group by n) "
+          "select h.n, element_at(hp, '1-URGENT'), map_keys(hp), map_values(hp), ma, "
+          "transform_values(hp, (k, c) -> c * 2), map_values(nh), "
+          "reduce(map_keys(nh), 0.0, (s, x) -> s + x, s -> s), "
+          "mm, element_at(mu, 'F'), "
+          "map_keys(mu) from h join mm on h.n = mm.n join mu on h.n = mu.n order by h.n",
+    # lambdas over ~100,000 per-customer arrays
+    "C3": "select count(*), sum(cardinality(filter(a, x -> x > 200000))), "
+          "sum(reduce(transform(a, x -> x * 2), 0.0, (s, x) -> s + x, s -> s)), "
+          "sum(reduce(zip_with(a, b, (x, y) -> x * y), 0.0, (s, x) -> s + x, s -> s)), "
+          "count_if(any_match(a, x -> x > 450000)), sum(element_at(a, 1)) from "
+          "(select o_custkey, array_agg(o_totalprice) a, array_agg(o_shippriority + 1) b "
+          "from orders group by o_custkey) q",
+    # words of p_name by position, with the array functions over the words
+    "C4": "select w, o, count(*), sum(cardinality(array_distinct(parts))), "
+          "count_if(contains(slice(parts, 2, 3), w)), sum(array_position(parts, w)), "
+          "count_if(contains(parts, 'green')) from (select split(p_name, ' ') parts from part) p "
+          "cross join unnest(parts) with ordinality as u(w, o) group by w, o order by w, o",
+    # a regression per return flag, then the models applied to lineitem
+    "C5": "select l_returnflag, learn_regressor(l_extendedprice, array[l_quantity, l_discount, "
+          "l_tax]) from lineitem group by l_returnflag order by l_returnflag",
+    "C5r": "with m as (select l_returnflag f, learn_regressor(l_extendedprice, "
+           "array[l_quantity, l_discount, l_tax]) model from lineitem group by l_returnflag) "
+           "select f, count(*), sum(regress(array[l_quantity, l_discount, l_tax], model)) "
+           "from lineitem join m on l_returnflag = f group by f order by f",
+    # a nested-loop spatial join: 25 triangles against 150,000 points
+    "C6": "with g as (select n_nationkey nk, st_polygon(concat(concat('POLYGON((', "
+          f"element_at({_nation_triangles()}, n_nationkey + 1)), '))')) poly from nation) "
+          "select nk, count(*) from g, customer where st_contains(poly, "
+          "st_point(c_acctbal + 1000, c_custkey % 1000)) group by nk order by nk",
+    # the 11 CDFs: the closed forms and torch.special ones over every
+    # lineitem row, the incomplete-beta ones over the distinct (discount,
+    # quantity) pairs weighted by their counts
+    "C7": "select sum(normal_cdf(25, 10, l_quantity)), "
+          "sum(inverse_normal_cdf(0, 1, l_discount * 9 + 0.05)), "
+          "sum(cauchy_cdf(25, 5, l_quantity)), sum(gamma_cdf(2, 10, l_quantity)), "
+          "sum(laplace_cdf(25, 8, l_quantity)), sum(weibull_cdf(1.5, 20, l_quantity)), "
+          "sum(chi_squared_cdf(5, l_tax * 100)), sum(poisson_cdf(25, l_quantity)) "
+          "from lineitem",
+    "C7b": "select sum(c * beta_cdf(2, 5, d * 8)), sum(c * binomial_cdf(50, 0.5, q)), "
+           "sum(c * inverse_beta_cdf(2, 5, d * 8 + 0.05)), count(*) from "
+           "(select l_discount d, l_quantity q, count(*) c from lineitem group by 1, 2) x",
+    # sketch states as rows, read by value_at_quantile and cardinality
+    "C7s": "select qdigest_agg(l_quantity), approx_set(l_partkey), "
+           "value_at_quantile(qdigest_agg(l_quantity), 0.5), "
+           "cardinality(approx_set(l_partkey)) from lineitem",
+    "C7m": "select cardinality(merge(s)), count(*) from (select l_returnflag, "
+           "approx_set(l_partkey) s from lineitem group by l_returnflag) x",
+}
+
+
+def numpy_c1(t):
+    """C1 over lineitem: the rows, sum(l_orderkey), the sum of l_orderkey
+    times its 1-based position among its supplier's rows in row order, and
+    the number of suppliers."""
+    import numpy as np
+
+    c = t["lineitem"].columns
+    key = c["l_orderkey"].data.astype(np.int64)
+    supp = c["l_suppkey"].data.astype(np.int64)
+    order = np.argsort(supp, kind="stable")
+    s_sorted = supp[order]
+    starts = np.flatnonzero(np.r_[True, s_sorted[1:] != s_sorted[:-1]])
+    run = np.repeat(starts, np.diff(np.r_[starts, len(order)]))
+    pos = np.arange(len(order)) - run + 1
+    return [(len(key), int(key.sum()), int((key[order] * pos).sum()), len(starts))]
+
+
+def numpy_c5(t):
+    """C5's weights by numpy's least squares: {flag: (w_quantity,
+    w_discount, w_tax, intercept)} over logical (unscaled) values."""
+    import numpy as np
+
+    c = t["lineitem"].columns
+    x = np.stack([c[n].data / 100.0 for n in ("l_quantity", "l_discount", "l_tax")]
+                 + [np.ones(t["lineitem"].num_rows)], axis=1)
+    y = c["l_extendedprice"].data / 100.0
+    flags = c["l_returnflag"]
+    out = {}
+    for code, flag in enumerate(flags.dictionary):
+        m = flags.data == code
+        out[flag] = np.linalg.lstsq(x[m], y[m], rcond=None)[0]
+    return out
+
+
+def numpy_c6(t):
+    """C6 by an even-odd ray cast in numpy over the same triangles and
+    points (a point on an edge or a vertex counts as inside)."""
+    import numpy as np
+
+    c = t["customer"].columns
+    px = c["c_acctbal"].data / 100.0 + 1000.0
+    py = (c["c_custkey"].data % 1000).astype(np.float64)
+    rows = []
+    for k in range(25):
+        v = np.array([[k * 440, 0], [k * 440 + 880, 0], [k * 440 + 440, 999], [k * 440, 0]],
+                     np.float64)
+        inside = np.zeros(len(px), bool)
+        edge = np.zeros(len(px), bool)
+        for (ax, ay), (bx, by) in zip(v[:-1], v[1:]):
+            if (ay > py).any() or (by > py).any():
+                straddle = (ay > py) != (by > py)
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    xint = ax + (py - ay) / (by - ay) * (bx - ax)
+                inside ^= straddle & (px < xint)
+            cross = (bx - ax) * (py - ay) - (by - ay) * (px - ax)
+            within = ((px >= min(ax, bx)) & (px <= max(ax, bx))
+                      & (py >= min(ay, by)) & (py <= max(ay, by)))
+            edge |= (np.abs(cross) <= 1e-9 * np.hypot(bx - ax, by - ay)) & within
+        n = int((inside | edge).sum())
+        if n:
+            rows.append((k, n))
+    return rows
+
+
+def collection_checks(tables):
+    """{label: check(rows) -> None or the difference} against numpy for
+    C1, C5 (the weights within 1e-6 relative: numpy's least squares and
+    the normal equations round differently) and C6."""
+    c1, c5, c6 = numpy_c1(tables), numpy_c5(tables), numpy_c6(tables)
+
+    def check_c5(rows):
+        from presto_tpu_torch.ops.mlreg import K_MAX
+
+        for flag, model in rows:
+            got = [model[0], model[1], model[2], model[K_MAX]]
+            want = c5[flag]
+            if any(abs(g - w) > 1e-6 * max(abs(w), 1.0) for g, w in zip(got, want)):
+                return f"C5 {flag}: weights {got} != numpy lstsq {list(want)}"
+        return None if len(rows) == len(c5) else f"C5: {len(rows)} models != {len(c5)}"
+
+    return {"C1": lambda rows: row_diff(rows, c1), "C5": check_c5,
+            "C6": lambda rows: row_diff(rows, c6)}
+
+
+def collections_path(sess, tables, runs=3):
+    """The COLLECTION_SQL texts through Session.query on the card, each cold
+    then warm, C1, C5 and C6 also held against numpy; C1 must take the
+    collection-width retry. Returns ({label: report}, {label: the rows of
+    each run}) for collections_compare."""
+    t0 = time.perf_counter()
+    checks = collection_checks(tables)
+    print(f"phase3 collections numpy checks computed in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    report, outs = {}, {}
+    for label, text in COLLECTION_SQL.items():
+        outs[label] = []
+        retries = len(sess.executor.width_retries)
+
+        def check(got, label=label):
+            outs[label].append(got)
+            return checks[label](got) if label in checks else None
+
+        cold, warm, launches, rows = _timed_runs(
+            lambda: sess.query(text).rows(), runs, check, f"{label} on the card")
+        widths = sess.executor.width_retries[retries:]
+        report[label] = {"result_rows": len(rows), "launches": launches, "cold_ms": cold,
+                         "warm_ms": warm, "width_retries": widths[:len(widths) // runs]}
+    if not report["C1"]["width_retries"]:
+        raise AssertionError("C1 did not take the collection-width retry on the card")
+    return report, outs
+
+
+def collections_compare(report, outs, cpu_rows):
+    """Each card run's rows against the port's rows on the CPU (futures
+    from start_cpu_rows' TPC-H texts), in order."""
+    for label in COLLECTION_SQL:
+        _, want, cpu_ms = cpu_rows[label].result()
+        for got in outs.pop(label):
+            diff = row_diff(got, want)
+            if diff is not None:
+                raise AssertionError(f"{label} on the card against the CPU: {diff}")
+        report[label]["cpu_ms"] = cpu_ms
+        print(f"phase3 collections {label}", json.dumps(report[label]), flush=True)
+
+
 def run_tpcds_traces(path):
     """The new process of start_traces: profile_one over one warm run of
     each (section, label, SQL, warm ms) item of the job at `path`, on a new
@@ -1445,8 +1684,14 @@ def run_tpcds_traces(path):
     with open(path) as f:
         job = json.load(f)
     sess, _ = make_tpcds_session(job["sf"])
+    tpch = None  # the `collections` texts read TPC-H
     for section, label, text, warm_ms in job["items"]:
-        summary, _ = profile_one(lambda: sess.query(text).rows(), warm_ms, tries=1)
+        on = sess
+        if section == "collections":
+            if tpch is None:
+                tpch, _ = make_session(_TPCH_SF)
+            on = tpch
+        summary, _ = profile_one(lambda: on.query(text).rows(), warm_ms, tries=1)
         print(f"phase3 {section} {label} profile", json.dumps(summary), flush=True)
 
 
@@ -2403,7 +2648,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ds_texts = tpcds_texts()
-    pool, cpu_rows = start_cpu_rows(ds_texts)
+    pool, cpu_rows = start_cpu_rows(ds_texts, tpch_texts=COLLECTION_SQL)
     try:
         ds_sess, ds_cat = make_tpcds_session()
         _zero_counts()
@@ -2418,18 +2663,34 @@ def main() -> int:
                  if r["warm_ms"] > TRACE_MIN_WARM_MS]
         items += [("functions", f, FUNCTION_SQL[f], r["warm_ms"])
                   for f, r in functions.items()]
+        # the `collections` path on the TPC-H SF 1 session (its CPU rows
+        # come from the same pool)
+        t1 = time.perf_counter()
+        _zero_counts()
+        coll, coll_outs = collections_path(sess, tables)
+        path_counts["collections"] = _counts()
+        print(f"phase3 collections card runs {time.perf_counter() - t1:.3f} s", flush=True)
+        items += [("collections", c, COLLECTION_SQL[c], r["warm_ms"]) for c, r in coll.items()]
         with tempfile.TemporaryDirectory() as tmp:
             traces = start_traces(items, tmp)
             tpcds_compare(tpcds, outs, cpu_rows)
-            tpcds_summary(tpcds, finish_traces(traces))
+            traced = finish_traces(traces)
+            tpcds_summary(tpcds, traced)
+            for (section, label), summary in traced.items():
+                if section == "collections":
+                    coll[label]["profile"] = summary
+            collections_compare(coll, coll_outs, cpu_rows)
     finally:
         pool.shutdown(cancel_futures=True)
-    print(f"phase3 tpcds and functions launches {json.dumps(path_counts['tpcds'])} "
-          f"{json.dumps(path_counts['functions'])} in {time.perf_counter() - t0:.3f} s",
-          flush=True)
+    print(f"phase3 tpcds, functions and collections launches {json.dumps(path_counts['tpcds'])} "
+          f"{json.dumps(path_counts['functions'])} {json.dumps(path_counts['collections'])} "
+          f"in {time.perf_counter() - t0:.3f} s", flush=True)
     for k in ("groupby_partials", "join_insert", "join_probe"):
         if path_counts["tpcds"][k] < 1:
             raise AssertionError(f"the tpcds path did not launch {k}")
+    for k in ("join_insert", "join_probe"):
+        if path_counts["collections"][k] < 1:
+            raise AssertionError(f"the collections path did not launch {k}")
 
     # phase 2: each kernel against its plain version, at the main paths'
     # shapes and at wider cases

@@ -15,9 +15,9 @@ kernel cache is a plain call here, and no breaker stands around a kernel:
 a kernel fault fails the query.
 
 Nodes ported: TableScan, Sample, Filter, Project, Aggregate, Distinct,
-Window, Sort, TopN, Limit, Union, Output, SingleRow, Join, SemiJoin,
-ScalarApply and the Exchange/AggFinalize pass-throughs. Any other node
-raises ExecutionError("not ported yet: <node>").
+Window, Sort, TopN, Limit, Union, Unnest, Output, SingleRow, Join,
+SemiJoin, ScalarApply and the Exchange/AggFinalize pass-throughs. Any other
+node raises ExecutionError("not ported yet: <node>").
 """
 
 from __future__ import annotations
@@ -53,6 +53,8 @@ class Executor:
         self.catalog = catalog
         self.device = torch.device(device)
         self._retries = 0  # adaptive-capacity re-runs
+        # (width tried, width retried with) of each collection-width retry
+        self.width_retries = []
         self._est_cache: Dict = {}
         self._ps_cache: Dict = {}
         # runtime dynamic filters: per-query build-side summaries consumed
@@ -259,9 +261,38 @@ class Executor:
         return Page(blocks, tuple(node.titles), page.count)
 
     # -- aggregation --
+    def _exec_unnest(self, node: N.Unnest, page: Page) -> Page:
+        from ..ops.unnest import unnest_page
+
+        out = unnest_page(page, node.array_exprs, node.elem_channels,
+                          node.ordinality_channel, node.replicate)
+        return self._shrink(out, node)
+
+    def _collect_width(self, out: Page, max_elems: int):
+        """The collection-width protocol: (None, page without the
+        `$collect_need` column) when every collection fit in `max_elems`,
+        else (the wider width to retry with, None). One host read."""
+        if "$collect_need" not in out.names:
+            return None, out
+        need = int(out.block("$collect_need").data[0])
+        if need > max_elems:
+            self._retries += 1
+            self.width_retries.append((max_elems, round_capacity(need)))
+            return round_capacity(need), None
+        keep = [(n, b) for n, b in zip(out.names, out.blocks) if n != "$collect_need"]
+        return None, Page(tuple(b for _, b in keep), tuple(n for n, _ in keep), out.count)
+
     def _exec_aggregate(self, node: N.Aggregate, page: Page) -> Page:
+        # collection aggregates start 128 elements wide and widen to the
+        # widest group on overflow
+        max_elems = 128
         if not node.group_exprs:
-            return global_aggregate(page, node.aggs, node.mask)
+            while True:
+                out = global_aggregate(page, node.aggs, node.mask, max_elems=max_elems)
+                wider, out = self._collect_width(out, max_elems)
+                if wider is None:
+                    return out
+                max_elems = wider
         # the dense kernel strategy first, on every device: its wrapper
         # launches the CUDA kernel for CUDA tensors and runs the plain
         # version for CPU tensors
@@ -286,19 +317,25 @@ class Executor:
         while True:
             out = grouped_aggregate_sorted(
                 page, node.group_exprs, node.group_names, node.aggs, max_groups,
-                node.mask,
+                node.mask, max_elems=max_elems,
             )
             true_groups = int(out.count)
             if true_groups > max_groups:
                 max_groups = round_capacity(true_groups)
                 self._retries += 1
                 continue
+            wider, out = self._collect_width(out, max_elems)
+            if wider is not None:
+                max_elems = wider
+                continue
             break
         return self._shrink(out, node)
 
     def _exec_distinct(self, node: N.Distinct, page: Page) -> Page:
         if any(b.lengths is not None or b.key_block is not None for b in page.blocks):
-            raise ExecutionError("not ported yet: DISTINCT over collection columns")
+            # collection columns carry equality in companion tensors
+            # (lengths, elem_valid, key_block) a packed key cannot see
+            return self._shrink(distinct_page(page, page.capacity), node)
         keys = tuple(ColumnRef(n, b.type) for n, b in zip(page.names, page.blocks))
         plan = self._keypack_plan(node, keys, page, equality_only=True, allow_hashed=True)
         if plan is not None:
@@ -613,6 +650,12 @@ class Executor:
                 data = torch.zeros((cap,) + tuple(b.data.shape[1:]), dtype=b.data.dtype,
                                    device=page.device)
                 valid = torch.zeros(cap, dtype=torch.bool, device=page.device)
+            elif b.lengths is not None or b.key_block is not None:
+                # a collection value: every row gathers row 0, companions too
+                blocks.append(b.take_rows(torch.zeros(cap, dtype=torch.int64,
+                                                      device=page.device)))
+                names.append(fname)
+                continue
             else:
                 data = b.data[0].expand((cap,) + tuple(b.data.shape[1:]))
                 valid = None if b.valid is None else b.valid[0].expand(cap)

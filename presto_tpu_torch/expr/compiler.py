@@ -17,7 +17,8 @@ sql/gen/AndCodeGenerator.java etc.):
   cast          — numeric/decimal/date conversions
 
 Everything else dispatches to the scalar registry (expr/functions.py).
-Higher-order (lambda) forms are not ported yet.
+Higher-order (lambda) forms evaluate their body as an ordinary scalar
+expression over the flattened elements (`_eval_lambda_form`).
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ import torch
 from .. import types as T
 from ..page import Block, Page, intern_dictionary, to_tensor
 from . import datetime_kernels as dt
-from .functions import NotPortedError, Val, and_valid, apply_function
+from .functions import (
+    Val, and_valid, apply_function, array_in_bounds, array_lengths, lane_compaction,
+)
 from .ir import Call, ColumnRef, Lambda, Literal, RowExpression
 
 LAMBDA_FORMS = {
@@ -70,11 +73,16 @@ def evaluate(expr: RowExpression, page: Page, n: Optional[int] = None) -> Val:
 
     if isinstance(expr, ColumnRef):
         blk = page.block(expr.name)
+        keys_val = None
         if blk.key_block is not None:
-            raise NotPortedError("not ported yet: map-typed columns")
+            kb = blk.key_block
+            keys_val = Val(
+                kb.data, None, T.ArrayType(blk.type.key), kb.dict_id,
+                lengths=kb.lengths, elem_valid=kb.elem_valid,
+            )
         return Val(
             blk.data, blk.valid, blk.type, blk.dict_id,
-            lengths=blk.lengths, elem_valid=blk.elem_valid,
+            lengths=blk.lengths, elem_valid=blk.elem_valid, keys=keys_val,
         )
 
     if isinstance(expr, Literal):
@@ -89,7 +97,7 @@ def evaluate(expr: RowExpression, page: Page, n: Optional[int] = None) -> Val:
     name = expr.name
 
     if name in LAMBDA_FORMS:
-        raise NotPortedError(f"not ported yet: lambda form {name!r}")
+        return _eval_lambda_form(expr, page)
 
     if name == "and":
         return _kleene_and([evaluate(a, page) for a in expr.args])
@@ -424,12 +432,304 @@ def project_page(
     blocks = []
     for e in exprs:
         v = evaluate(e, page)
+        kb = None
         if v.keys is not None:
-            raise NotPortedError("not ported yet: map-typed projections")
+            k = v.keys
+            kb = Block(
+                k.data, v.type.key, None, k.dict_id,
+                lengths=k.lengths, elem_valid=k.elem_valid,
+            )
         blocks.append(
             Block(
                 v.data, v.type, v.valid, v.dict_id,
-                lengths=v.lengths, elem_valid=v.elem_valid,
+                lengths=v.lengths, elem_valid=v.elem_valid, key_block=kb,
             )
         )
     return Page(tuple(blocks), tuple(names), page.count)
+
+
+# ---------------------------------------------------------------------------
+# higher-order (lambda) functions over arrays and maps
+# ---------------------------------------------------------------------------
+# Strategy (reference ArrayTransformFunction & friends): flatten the
+# (capacity, width) element matrix to one (capacity * width) column, append
+# every outer column row-repeated `width` times, and evaluate the lambda
+# BODY as an ordinary scalar expression over that flat page — every scalar
+# function is reused unchanged. Results reshape back to (capacity, width).
+
+
+def _column_names(expr, out: set) -> set:
+    """Names of the columns an expression reads."""
+    if isinstance(expr, ColumnRef):
+        out.add(expr.name)
+    elif isinstance(expr, Call):
+        for a in expr.args:
+            _column_names(a, out)
+    elif isinstance(expr, Lambda):
+        _column_names(expr.body, out)
+    return out
+
+
+def _flat_page_for(page: Page, width: int, params, body) -> Page:
+    """The outer columns `body` reads, row-repeated `width` times, plus the
+    lambda-param blocks. Columns the body does not read are left out: an
+    outer array column repeated `width` times would be width^2 per row."""
+    blocks, names = [], []
+    used = _column_names(body, set()) - {nm for nm, _ in params}
+    for nm, b in zip(page.names, page.blocks):
+        if nm not in used:
+            continue
+        if width == 1:
+            blocks.append(b)
+        else:
+            blocks.append(b.take_rows(
+                torch.arange(b.capacity, device=b.device).repeat_interleave(width)))
+        names.append(nm)
+    for nm, v in params:
+        blocks.append(Block(v.data, v.type, v.valid, v.dict_id,
+                            lengths=v.lengths, elem_valid=v.elem_valid))
+        names.append(nm)
+    cap = page.capacity * width
+    return Page(tuple(blocks), tuple(names),
+                torch.tensor(cap, dtype=torch.int32, device=page.device))
+
+
+def _elements_val(arr: Val, elem_t: T.Type) -> Val:
+    """Flatten an array Val's elements to a (capacity*width,) Val."""
+    width = arr.data.shape[1]
+    data = arr.data.reshape((arr.data.shape[0] * width,) + tuple(arr.data.shape[2:]))
+    valid = None if arr.elem_valid is None else arr.elem_valid.reshape(-1)
+    return Val(data, valid, elem_t, arr.dict_id)
+
+
+def _take_lanes(x: Optional[torch.Tensor], order: torch.Tensor):
+    if x is None:
+        return None
+    idx = order.reshape(tuple(order.shape) + (1,) * (x.ndim - 2)).expand(
+        tuple(order.shape) + tuple(x.shape[2:]))
+    return torch.gather(x, 1, idx)
+
+
+def _eval_lambda_form(expr: Call, page: Page) -> Val:
+    name = expr.name
+    out_type = expr.type
+    if name == "zip_with":
+        return _eval_zip_with(expr, page)
+    if name == "map_zip_with":
+        return _eval_map_zip_with(expr, page)
+    if name == "reduce":
+        return _eval_reduce(expr, page)
+    if name in ("map_filter", "transform_values", "transform_keys"):
+        return _eval_map_lambda(expr, page)
+    arr = evaluate(expr.args[0], page)
+    lam: Lambda = expr.args[1]
+    if arr.data.ndim != 2:
+        raise TypeError(f"{name} expects an array value")
+    cap, width = arr.data.shape[0], arr.data.shape[1]
+    elems = _elements_val(arr, lam.param_types[0])
+    flat = _flat_page_for(page, width, [(lam.params[0], elems)], lam.body)
+    body = evaluate(lam.body, flat)
+    inb = array_in_bounds(arr)
+
+    if name == "transform":
+        data = body.data.reshape((cap, width) + tuple(body.data.shape[1:]))
+        evalid = None if body.valid is None else body.valid.reshape(cap, width)
+        return Val(data, arr.valid, out_type, body.dict_id,
+                   lengths=array_lengths(arr), elem_valid=evalid)
+    if name == "filter":
+        keep = (body.data & body.valid_mask()).reshape(cap, width) & inb
+        order = lane_compaction(keep)
+        lengths = keep.sum(dim=1, dtype=torch.int32)
+        return Val(_take_lanes(arr.data, order), arr.valid, out_type, arr.dict_id,
+                   lengths=lengths, elem_valid=_take_lanes(arr.elem_valid, order))
+    # any/all/none_match over in-bounds elements: the two-valued reduction
+    # of the JAX package (a NULL lambda result counts as false)
+    truthy = (body.data & body.valid_mask()).reshape(cap, width)
+    if name == "any_match":
+        agg = (truthy & inb).any(dim=1)
+    elif name == "all_match":
+        agg = (truthy | ~inb).all(dim=1)
+    else:  # none_match
+        agg = ~(truthy & inb).any(dim=1)
+    return Val(agg, arr.valid, T.BOOLEAN)
+
+
+def _unify_key_lanes(k1: Val, k2: Val):
+    """Two key lanes in one representation: varchar dictionaries unified,
+    numeric dtypes promoted."""
+    kd1, kd2, kdict = k1.data, k2.data, k1.dict_id
+    if (k1.dict_id is not None or k2.dict_id is not None) and k1.dict_id != k2.dict_id:
+        from .functions import unify_dictionaries
+
+        kd1, kd2, kdict = unify_dictionaries(k1, k2)
+    if kd1.dtype != kd2.dtype:
+        wide = torch.promote_types(kd1.dtype, kd2.dtype)
+        kd1, kd2 = kd1.to(wide), kd2.to(wide)
+    return kd1, kd2, kdict
+
+
+def _eval_map_zip_with(expr: Call, page: Page) -> Val:
+    """map_zip_with(m1, m2, (k, v1, v2) -> ...) — reference
+    MapZipWithFunction: output keys are the UNION of the two key sets; a
+    side's value is NULL where its map lacks the key. One per-row sort
+    over (out_of_bounds, key) clusters duplicates, a shifted compare marks
+    first occurrences, and each side's value is a masked equality lookup
+    of the union keys in that side's key lane."""
+    m1 = evaluate(expr.args[0], page)
+    m2 = evaluate(expr.args[1], page)
+    lam: Lambda = expr.args[2]
+    if m1.keys is None or m2.keys is None:
+        raise TypeError("map_zip_with expects two map values")
+    kd1, kd2, kdict = _unify_key_lanes(m1.keys, m2.keys)
+    cap = m1.data.shape[0]
+    W = m1.data.shape[1] + m2.data.shape[1]
+    inb1, inb2 = array_in_bounds(m1), array_in_bounds(m2)
+    allk = torch.cat([kd1, kd2], dim=1)
+    inb = torch.cat([inb1, inb2], dim=1)
+    # sort by key, then stably by the out-of-bounds flag: in-bounds lanes
+    # first, equal keys adjacent, padding never mistaken for a real key
+    o = torch.argsort(allk, dim=1, stable=True)
+    o = torch.gather(o, 1, torch.argsort(torch.gather((~inb).to(torch.uint8), 1, o),
+                                         dim=1, stable=True))
+    sk = torch.gather(allk, 1, o)
+    sinb = torch.gather(inb, 1, o)
+    first = torch.cat([torch.ones((cap, 1), dtype=torch.bool, device=sk.device),
+                       sk[:, 1:] != sk[:, :-1]], dim=1)
+    uniq = sinb & first
+    ukeys = torch.gather(sk, 1, lane_compaction(uniq))
+    ulen = uniq.sum(dim=1, dtype=torch.int32)
+
+    def lookup(m: Val, kd, inbm):
+        eq = (ukeys[:, :, None] == kd[:, None, :]) & inbm[:, None, :]
+        found = eq.any(dim=2)
+        idx = eq.to(torch.uint8).argmax(dim=2)
+        vdat = torch.gather(m.data, 1, idx)
+        ev = found
+        if m.elem_valid is not None:
+            ev = ev & torch.gather(m.elem_valid, 1, idx)
+        return vdat, ev
+
+    v1, ev1 = lookup(m1, kd1, inb1)
+    v2, ev2 = lookup(m2, kd2, inb2)
+    flat = _flat_page_for(page, W, [
+        (lam.params[0], Val(ukeys.reshape(-1), None, lam.param_types[0], kdict)),
+        (lam.params[1], Val(v1.reshape(-1), ev1.reshape(-1), lam.param_types[1],
+                            m1.dict_id)),
+        (lam.params[2], Val(v2.reshape(-1), ev2.reshape(-1), lam.param_types[2],
+                            m2.dict_id)),
+    ], lam.body)
+    body = evaluate(lam.body, flat)
+    bvalid = None if body.valid is None else body.valid.reshape(cap, W)
+    new_keys = Val(ukeys, None, expr.type.key, kdict, lengths=ulen)
+    return Val(body.data.reshape(cap, W), and_valid(m1.valid, m2.valid), expr.type,
+               body.dict_id, lengths=ulen, elem_valid=bvalid, keys=new_keys)
+
+
+def _eval_map_lambda(expr: Call, page: Page) -> Val:
+    """map_filter / transform_values / transform_keys: the lambda body
+    evaluates over flattened (key, value) element pairs (reference
+    MapFilterFunction + MapTransform*Function)."""
+    name = expr.name
+    out_type = expr.type
+    m = evaluate(expr.args[0], page)
+    lam: Lambda = expr.args[1]
+    if m.keys is None or m.data.ndim != 2:
+        raise TypeError(f"{name} expects a map value")
+    keys = m.keys
+    cap, width = m.data.shape[0], m.data.shape[1]
+    flat = _flat_page_for(page, width, [
+        (lam.params[0], _elements_val(keys, lam.param_types[0])),
+        (lam.params[1], _elements_val(m, lam.param_types[1])),
+    ], lam.body)
+    body = evaluate(lam.body, flat)
+    inb = array_in_bounds(m)
+
+    if name == "map_filter":
+        keep = (body.data & body.valid_mask()).reshape(cap, width) & inb
+        order = lane_compaction(keep)
+        lengths = keep.sum(dim=1, dtype=torch.int32)
+        new_keys = Val(torch.gather(keys.data, 1, order), None, keys.type, keys.dict_id,
+                       lengths=lengths)
+        return Val(torch.gather(m.data, 1, order), m.valid, out_type, m.dict_id,
+                   lengths=lengths, elem_valid=_take_lanes(m.elem_valid, order),
+                   keys=new_keys)
+    bdata = body.data.reshape(cap, width)
+    bvalid = None if body.valid is None else body.valid.reshape(cap, width)
+    if name == "transform_values":
+        # the body's OWN validity is the only per-entry nullability (it
+        # already folds in elem_valid when the body reads v)
+        return Val(bdata, m.valid, out_type, body.dict_id, lengths=m.lengths,
+                   elem_valid=bvalid, keys=keys)
+    # transform_keys: values unchanged; keys replaced by the body
+    new_keys = Val(bdata, None, out_type.key, body.dict_id, lengths=m.lengths)
+    return Val(m.data, m.valid, out_type, m.dict_id, lengths=m.lengths,
+               elem_valid=m.elem_valid, keys=new_keys)
+
+
+def _eval_zip_with(expr: Call, page: Page) -> Val:
+    a = evaluate(expr.args[0], page)
+    b = evaluate(expr.args[1], page)
+    lam: Lambda = expr.args[2]
+    cap = a.data.shape[0]
+    width = max(a.data.shape[1], b.data.shape[1])
+    lane = torch.arange(width, dtype=torch.int32, device=a.device)[None, :]
+
+    def elems(v: Val, pt):
+        # the shorter array's missing elements are NULL (Presto zip_with)
+        pad = width - v.data.shape[1]
+        data = v.data
+        ev = v.elem_valid
+        if ev is None:
+            ev = torch.ones(v.data.shape[:2], dtype=torch.bool, device=v.device)
+        if pad:
+            data = torch.cat([data, torch.zeros((cap, pad) + tuple(data.shape[2:]),
+                                                dtype=data.dtype, device=data.device)], 1)
+            ev = torch.cat([ev, torch.zeros((cap, pad), dtype=torch.bool,
+                                            device=ev.device)], 1)
+        ln = array_lengths(v)
+        ev = ev & (lane < ln[:, None])
+        return Val(data.reshape((cap * width,) + tuple(data.shape[2:])), ev.reshape(-1),
+                   pt, v.dict_id), ln
+
+    ea, la = elems(a, lam.param_types[0])
+    eb, lb = elems(b, lam.param_types[1])
+    flat = _flat_page_for(page, width, [(lam.params[0], ea), (lam.params[1], eb)],
+                          lam.body)
+    body = evaluate(lam.body, flat)
+    data = body.data.reshape((cap, width) + tuple(body.data.shape[1:]))
+    evalid = None if body.valid is None else body.valid.reshape(cap, width)
+    return Val(data, and_valid(a.valid, b.valid), expr.type, body.dict_id,
+               lengths=torch.maximum(la, lb), elem_valid=evalid)
+
+
+def _eval_reduce(expr: Call, page: Page) -> Val:
+    """reduce(array, init, (s, x) -> s', s -> r): the state folds over the
+    array's width, one lane per step, masked past each row's length."""
+    arr = evaluate(expr.args[0], page)
+    init = evaluate(expr.args[1], page)
+    input_fn: Lambda = expr.args[2]
+    output_fn: Lambda = expr.args[3]
+    width = arr.data.shape[1]
+    inb = array_in_bounds(arr)
+    state = init
+    if state.type != input_fn.param_types[0]:
+        state = _cast_val(state, input_fn.param_types[0])
+    for j in range(width):
+        evalid = None if arr.elem_valid is None else arr.elem_valid[:, j]
+        ev = Val(arr.data[:, j], evalid, input_fn.param_types[1], arr.dict_id)
+        flat = _flat_page_for(page, 1, [(input_fn.params[0], state),
+                                        (input_fn.params[1], ev)], input_fn.body)
+        nxt = evaluate(input_fn.body, flat)
+        live = inb[:, j]
+        ndata, sdata = nxt.data, state.data
+        if ndata.dtype != sdata.dtype:
+            sdata = sdata.to(ndata.dtype)
+        data = torch.where(live.reshape((-1,) + (1,) * (ndata.ndim - 1)), ndata, sdata)
+        if state.valid is None and nxt.valid is None:
+            valid = None
+        else:
+            valid = torch.where(live, nxt.valid_mask(), state.valid_mask())
+        state = Val(data, valid, nxt.type, nxt.dict_id)
+    flat = _flat_page_for(page, 1, [(output_fn.params[0], state)], output_fn.body)
+    out = evaluate(output_fn.body, flat)
+    return Val(out.data, and_valid(out.valid, arr.valid), expr.type, out.dict_id)

@@ -14,9 +14,9 @@ Null semantics: scalar functions are null-propagating (RETURNS NULL ON NULL
 INPUT, the reference default); special forms in compiler.py implement Kleene
 AND/OR, IS NULL, COALESCE, IF/CASE.
 
-Every function of the JAX package's registry is known here by name:
-the ported ones evaluate, the rest (`NOT_PORTED`) raise a "not ported yet"
-error at planning time instead of an unknown-function error.
+Every function of the JAX package's registry is ported. Array and map
+values are (capacity, width) data with per-row `lengths`, an optional
+element null mask and, for a MAP, the keys in a companion array (`keys`).
 """
 
 from __future__ import annotations
@@ -50,7 +50,8 @@ class Val:
     type: T.Type
     dict_id: Optional[int] = None
     literal: object = None
-    # array/map values only (not ported yet; kept for layout parity)
+    # array/map values only: per-row element counts, the per-element null
+    # mask, and a MAP's keys (an array value of the same width)
     lengths: Optional[torch.Tensor] = None
     elem_valid: Optional[torch.Tensor] = None
     keys: Optional["Val"] = None
@@ -873,10 +874,10 @@ def _map_infer_element(ts):
 @register("element_at", _map_infer_element)
 def _element_at(a: Val, idx: Val, out_type: T.Type) -> Val:
     """1-based access into an array; negative indexes count from the end;
-    out of range -> NULL (element_at's forgiving semantics). The MAP form
-    (key lookup) is not ported yet."""
+    out of range -> NULL (element_at's forgiving semantics; the subscript
+    routes here too). For a MAP, key lookup -> value or NULL."""
     if isinstance(a.type, T.MapType):
-        raise NotPortedError("not ported yet: element_at over a map")
+        return _map_element_at(a, idx, out_type)
     if a.lengths is None and a.data.ndim != 2:
         raise TypeError("element_at requires an array value")
     i64 = idx.data.to(torch.int64)
@@ -1095,14 +1096,7 @@ def _pad(s, n, pad, left):
     return fill + s if left else s + fill
 
 
-def _reverse_infer(ts):
-    """reverse(varchar); the array overload waits for collections."""
-    if isinstance(ts[0], T.ArrayType):
-        raise NotPortedError("not ported yet: function 'reverse' over an array")
-    return ts[0]
-
-
-_dict_str_fn("reverse", lambda s: s[::-1], _reverse_infer)
+_dict_str_fn("reverse", lambda s: s[::-1], lambda ts: ts[0])
 _dict_str_fn("ltrim", lambda s, *a: s.lstrip(*a))
 _dict_str_fn("rtrim", lambda s, *a: s.rstrip(*a))
 _dict_str_fn("replace", lambda s, old, new="": s.replace(old, new))
@@ -1776,43 +1770,228 @@ def _url_decode(a: Val, out_type: T.Type) -> Val:
     return _dict_transform(a, unquote_plus)
 
 
+# ---------------------------------------------------------------------------
+# arrays and maps (reference operator/scalar/ArrayFunctions.java +
+# ArrayConstructor, ArraySubscriptOperator, SequenceFunction,
+# StringFunctions.split, MapConstructor). An array value is (capacity,
+# width) data + per-row lengths; a map adds its keys as a companion array.
+# ---------------------------------------------------------------------------
+
+
+def array_lengths(a: Val) -> torch.Tensor:
+    """Per-row lengths; a fixed-width array without them has every lane live."""
+    if a.lengths is not None:
+        return a.lengths
+    return torch.full(a.data.shape[:1], a.data.shape[1], dtype=torch.int32, device=a.device)
+
+
+def array_in_bounds(a: Val) -> torch.Tensor:
+    """(rows, width) mask of the lanes inside each row's length."""
+    lane = torch.arange(a.data.shape[1], device=a.device)
+    return lane[None, :] < array_lengths(a)[:, None]
+
+
+def lane_compaction(keep: torch.Tensor) -> torch.Tensor:
+    """Per-row order that moves the kept lanes to the front, in order."""
+    return torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
+
+
+def widen_lanes(x: Optional[torch.Tensor], width: int) -> Optional[torch.Tensor]:
+    """Zero-pad the lane axis (axis 1) of a collection tensor to `width`."""
+    if x is None or x.shape[1] >= width:
+        return x
+    pad = torch.zeros((x.shape[0], width - x.shape[1]) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
+@register("array_constructor", lambda ts: T.ArrayType(ts[0] if ts else T.UNKNOWN))
+def _array_constructor(*vals, out_type: T.Type) -> Val:
+    if not vals:
+        raise NotImplementedError("empty ARRAY[] requires a typed context")
+    did = None
+    if isinstance(out_type.element, T.VarcharType):
+        # varchar elements may arrive with different dictionaries (literals
+        # intern as singletons): remap all onto one
+        acc = vals[0]
+        for v in vals[1:]:
+            xa, _xb, did = unify_dictionaries(acc, v)
+            acc = Val(xa, acc.valid, acc.type, did)
+        did = acc.dict_id
+        data = torch.stack([unify_dictionaries(v, acc)[0] for v in vals], dim=1)
+    else:
+        dtype = out_type.element.storage_dtype
+        data = torch.stack([v.data.to(dtype) for v in vals], dim=1)
+    evalid = None
+    if any(v.valid is not None for v in vals):
+        evalid = torch.stack([v.valid_mask() for v in vals], dim=1)
+    lengths = torch.full(vals[0].data.shape[:1], len(vals), dtype=torch.int32,
+                         device=vals[0].device)
+    return Val(data, None, out_type, did, lengths=lengths, elem_valid=evalid)
+
+
+def dict_split_val(a: Val, parts_per, what: str) -> Val:
+    """array(varchar) from one host split per DICTIONARY entry: the parts
+    of entry i are parts_per[i]; codes and lengths are per-entry tables
+    gathered by the column's codes."""
+    d = a.dictionary
+    width = max((len(p) for p in parts_per), default=1) or 1
+    out_dict = tuple(sorted({p for parts in parts_per for p in parts}))
+    index = {x: i for i, x in enumerate(out_dict)}
+    codes = np.zeros((max(len(d), 1), width), np.int32)
+    lens = np.zeros(max(len(d), 1), np.int32)
+    for i, parts in enumerate(parts_per):
+        lens[i] = len(parts)
+        codes[i, :len(parts)] = [index[x] for x in parts]
+    c = a.data.to(torch.int64)
+    return Val(_table(codes, torch.int32, a.data)[c], a.valid, T.ArrayType(T.VARCHAR),
+               intern_dictionary(out_dict), lengths=_table(lens, torch.int32, a.data)[c])
+
+
+def _require_dictionary(a: Val, what: str):
+    d = a.dictionary
+    if d is None:
+        raise TypeError(f"{what}: varchar value lost its dictionary")
+    return d
+
+
+@register("split", lambda ts: T.ArrayType(T.VARCHAR))
+def _split(a: Val, delim: Val, *rest, out_type: T.Type) -> Val:
+    """split(str, delim [, limit]) -> array(varchar): each dictionary entry
+    splits once on the host."""
+    d = _require_dictionary(a, "split")
+    sep = _require_literal(delim, "split delimiter")
+    limit = int(_require_literal(rest[0], "split limit")) if rest else None
+    parts = [(x.split(sep, limit - 1) if limit else x.split(sep)) for x in d]
+    return dict_split_val(a, parts, "split")
+
+
+@register("cardinality", _bigint_infer)
+def _cardinality(a: Val, out_type: T.Type) -> Val:
+    if getattr(a.type, "sketch", None) == "hll":
+        from ..ops.aggregate import hll_estimate
+
+        return Val(hll_estimate(a.data), a.valid, T.BIGINT)
+    if a.lengths is None:
+        raise TypeError("cardinality requires an array value")
+    return Val(a.lengths.to(torch.int64), a.valid, T.BIGINT)
+
+
+def _array_elem_eq(a: Val, needle: Val, what: str):
+    """(eq, in_len) matrices of element-vs-needle comparison. A varchar
+    needle with another dictionary must be a literal; it resolves against
+    the array's sorted dictionary."""
+    if a.lengths is None:
+        raise TypeError(f"{what} requires an array value")
+    lane = torch.arange(a.data.shape[1], dtype=torch.int32, device=a.device)
+    in_len = lane[None, :] < torch.clamp(a.lengths, min=0)[:, None]
+    if isinstance(needle.type, T.VarcharType) and needle.dict_id != a.dict_id:
+        require_sorted_dict(a, what)
+        lit = _require_literal(needle, f"{what} needle")
+        d = a.dictionary or ()
+        code = _bisect(d, lit, "left")
+        if code < len(d) and d[code] == lit:
+            eq = a.data == code
+        else:
+            eq = torch.zeros(a.data.shape, dtype=torch.bool, device=a.device)
+    else:
+        nd = needle.data
+        if nd.ndim == 0:
+            nd = nd.expand(a.data.shape[0])
+        eq = a.data == nd[:, None]
+    return eq, in_len
+
+
+@register("contains", _bool_infer)
+def _contains(a: Val, needle: Val, out_type: T.Type) -> Val:
+    eq, in_len = _array_elem_eq(a, needle, "contains")
+    null_elem = torch.zeros(in_len.shape[0], dtype=torch.bool, device=a.device)
+    if a.elem_valid is not None:
+        eq = eq & a.elem_valid
+        null_elem = (~a.elem_valid & in_len).any(dim=1)
+    hit = (eq & in_len).any(dim=1)
+    # three-valued: not found but a NULL element present -> NULL
+    valid = and_valid(a.valid, needle.valid, hit | ~null_elem)
+    return Val(hit, valid, T.BOOLEAN)
+
+
+@register("array_position", _bigint_infer)
+def _array_position(a: Val, needle: Val, out_type: T.Type) -> Val:
+    """1-based index of the first match, 0 when absent."""
+    eq, in_len = _array_elem_eq(a, needle, "array_position")
+    if a.elem_valid is not None:
+        eq = eq & a.elem_valid
+    eq = eq & in_len
+    first = torch.where(eq.any(dim=1), eq.to(torch.uint8).argmax(dim=1) + 1, 0)
+    return Val(first.to(torch.int64), and_valid(a.valid, needle.valid), T.BIGINT)
+
+
+def _map_element_at(m: Val, k: Val, out_type: T.Type) -> Val:
+    eq, in_len = _array_elem_eq(m.keys, k, "map key lookup")
+    hit = eq & in_len
+    found = hit.any(dim=1)
+    pos = hit.to(torch.uint8).argmax(dim=1)
+    data = torch.gather(m.data, 1, pos[:, None])[:, 0]
+    valid = and_valid(m.valid, k.valid, found)
+    if m.elem_valid is not None:
+        valid = and_valid(valid, torch.gather(m.elem_valid, 1, pos[:, None])[:, 0])
+    return Val(data, valid, out_type, m.dict_id)
+
+
+@register("map", lambda ts: T.MapType(ts[0].element, ts[1].element))
+def _map_constructor(karr: Val, varr: Val, out_type: T.Type) -> Val:
+    """map(key_array, value_array) (reference MapConstructor). Arrays of
+    unequal length give a NULL map, as in the JAX package (the reference
+    raises)."""
+    if karr.lengths is None or varr.lengths is None:
+        raise TypeError("map() takes two array arguments")
+    valid = and_valid(karr.valid, varr.valid, karr.lengths == varr.lengths)
+    w = max(karr.data.shape[1], varr.data.shape[1])
+    keys = Val(widen_lanes(karr.data, w), None, T.ArrayType(out_type.key), karr.dict_id,
+               lengths=karr.lengths, elem_valid=widen_lanes(karr.elem_valid, w))
+    return Val(widen_lanes(varr.data, w), valid, out_type, varr.dict_id,
+               lengths=karr.lengths, elem_valid=widen_lanes(varr.elem_valid, w), keys=keys)
+
+
+@register("map_keys", lambda ts: T.ArrayType(ts[0].key))
+def _map_keys(m: Val, out_type: T.Type) -> Val:
+    k = m.keys
+    return Val(k.data, m.valid, out_type, k.dict_id, lengths=m.lengths,
+               elem_valid=k.elem_valid)
+
+
+@register("map_values", lambda ts: T.ArrayType(ts[0].value))
+def _map_values(m: Val, out_type: T.Type) -> Val:
+    return Val(m.data, m.valid, out_type, m.dict_id, lengths=m.lengths,
+               elem_valid=m.elem_valid)
+
+
+@register("sequence", lambda ts: T.ArrayType(ts[0]))
+def _sequence(a: Val, b: Val, *rest, out_type: T.Type) -> Val:
+    """sequence(start, stop [, step]) with literal bounds."""
+    start = int(_require_literal(a, "sequence start"))
+    stop = int(_require_literal(b, "sequence stop"))
+    if rest:
+        step = int(_require_literal(rest[0], "sequence step"))
+    else:
+        step = 1 if stop >= start else -1  # Presto: implicit descending
+    if step == 0:
+        raise ValueError("sequence step must be non-zero")
+    if (stop - start) * step < 0:
+        # reference SequenceFunction: the step must move toward stop
+        raise ValueError(f"sequence step {step} cannot reach stop {stop} from {start}")
+    values = list(range(start, stop + (1 if step > 0 else -1), step))
+    cap = a.data.shape[0]
+    row = _table(np.array(values, np.int64), torch.int64, a.data)
+    return Val(row[None, :].expand(cap, len(values)), None, out_type,
+               lengths=torch.full((cap,), len(values), dtype=torch.int32, device=a.device))
+
+
 # the long tail (math, string, digest, JSON, clock and report helpers of
 # presto_tpu/expr/functions_ext.py) registers on import
 from . import functions_ext  # noqa: E402,F401  (registration side effects)
 
 
-# ---------------------------------------------------------------------------
-# not ported yet: the array, map and geometry functions of presto_tpu's
-# registry, and its statistical *_cdf family (jax.scipy there)
-# ---------------------------------------------------------------------------
-
-NOT_PORTED = tuple(
-    """
-array_concat array_constructor array_distinct array_except array_intersect
-array_max array_min array_position array_remove array_sort array_union
-arrays_overlap cardinality classify contains cosine_distance
-cosine_similarity map map_concat map_keys map_values quantile_at_value
-regexp_extract_all regexp_split regress sequence slice split split_to_map
-st_area st_centroid st_contains st_disjoint st_distance st_envelope
-st_geometryfromtext st_intersects st_isclosed st_isempty st_length
-st_linefromtext st_numpoints st_perimeter st_point st_polygon st_within st_x
-st_xmax st_xmin st_y st_ymax st_ymin value_at_quantile
-beta_cdf binomial_cdf cauchy_cdf chi_squared_cdf gamma_cdf inverse_beta_cdf
-inverse_normal_cdf laplace_cdf normal_cdf poisson_cdf weibull_cdf
-""".split()
-)
-
-
-def _not_ported(name):
-    def infer(ts):
-        raise NotPortedError(f"not ported yet: function {name!r}")
-
-    def impl(*vals, out_type):
-        raise NotPortedError(f"not ported yet: function {name!r}")
-
-    FUNCTIONS[name] = ScalarFunction(name, infer, impl)
-
-
-for _name in NOT_PORTED:
-    if _name not in FUNCTIONS:
-        _not_ported(_name)
+# every name of the JAX package's registry is ported (kept for callers that
+# list what is left)
+NOT_PORTED = ()

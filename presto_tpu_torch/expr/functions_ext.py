@@ -16,9 +16,11 @@ the JAX package.
 Zero-argument functions (e(), pi(), now(), ...) return a 0-d tensor with
 its `literal`; the compiler broadcasts it to the page's capacity.
 
-Not ported yet (they raise "not ported yet", see functions.NOT_PORTED): the
-array, map and geometry functions, the statistical `*_cdf` family, and the
-array forms of `reverse` and `concat`.
+Array and map functions work on (capacity, width) element tensors with
+per-row lengths (functions.py); geometry values are ARRAY(DOUBLE) vertex
+lanes (ops/geometry.py); the `*_cdf` family uses torch.special where it has
+the function and a regularized incomplete beta written here where it does
+not.
 
 Imported for its registration side effects at the bottom of functions.py.
 """
@@ -41,11 +43,11 @@ import numpy as np
 import torch
 
 from .. import types as T
+from ..page import to_tensor
 from .functions import (
     _STRFTIME_SPECS,
     _TS_US,
     FUNCTIONS,
-    NotPortedError,
     Val,
     _alias,
     _bigint_infer,
@@ -68,9 +70,15 @@ from .functions import (
     _unary_double,
     _varchar_infer,
     and_valid,
+    array_in_bounds,
+    array_lengths,
+    dict_split_val,
     intern_dictionary,
+    lane_compaction,
     register,
+    require_sorted_dict,
     shift_right_logical,
+    unify_dictionaries,
 )
 
 # ---------------------------------------------------------------------------
@@ -252,8 +260,7 @@ def _word_stem(a: Val, out_type: T.Type) -> Val:
 
 @register("repeat", lambda ts: T.ArrayType(ts[0]))
 def _repeat(elem: Val, count: Val, out_type: T.Type) -> Val:
-    """repeat(element, n) as an array value inside an expression (element_at
-    reads it); arrays as results wait for collections."""
+    """repeat(element, n) as an array value."""
     n = int(_require_literal(count, "repeat count"))
     e = elem.data
     width = max(n, 1)
@@ -874,3 +881,795 @@ def _render(b: Val, *rest, out_type: T.Type) -> Val:
     codes = torch.where(b.data.to(torch.bool), 0, 1).to(torch.int32)
     return Val(codes, b.valid, T.VARCHAR, intern_dictionary(("✓", "✗")))
 
+
+
+# ---------------------------------------------------------------------------
+# array tail (reference operator/scalar/ArrayFunctions.java and array/*.java)
+# ---------------------------------------------------------------------------
+
+_base_reverse = FUNCTIONS["reverse"].impl
+
+
+@register("reverse", lambda ts: ts[0])
+def _reverse(a: Val, out_type: T.Type) -> Val:
+    """reverse(array) element reversal; varchar keeps the dictionary
+    implementation (the reference has both overloads)."""
+    if not isinstance(a.type, T.ArrayType):
+        return _base_reverse(a, out_type=out_type)
+    w = a.data.shape[1]
+    lens = array_lengths(a)
+    lane = torch.arange(w, device=a.device)
+    idx = torch.clamp(lens[:, None].to(torch.int64) - 1 - lane[None, :], 0, max(w - 1, 0))
+    ev = None if a.elem_valid is None else torch.gather(a.elem_valid, 1, idx)
+    return Val(torch.gather(a.data, 1, idx), a.valid, a.type, a.dict_id, lengths=lens,
+               elem_valid=ev)
+
+
+def _elem_live(a: Val) -> torch.Tensor:
+    """In-bounds, non-NULL elements."""
+    live = array_in_bounds(a)
+    if a.elem_valid is not None:
+        live = live & a.elem_valid
+    return live
+
+
+def _has_null_elem(a: Val) -> torch.Tensor:
+    """Rows holding a NULL element."""
+    if a.elem_valid is None:
+        return torch.zeros(a.data.shape[:1], dtype=torch.bool, device=a.device)
+    return (array_in_bounds(a) & ~a.elem_valid).any(dim=1)
+
+
+def _extreme(a: Val, out_type: T.Type, kind: str) -> Val:
+    """array_max / array_min: NULL for an empty array or one holding a
+    NULL element (Presto)."""
+    live = _elem_live(a)
+    x = a.data
+    if x.is_floating_point():
+        ident = float("-inf") if kind == "max" else float("inf")
+    else:
+        info = torch.iinfo(x.dtype)
+        ident = info.min if kind == "max" else info.max
+    x = torch.where(live, x, torch.full_like(x, ident))
+    out = x.amax(dim=1) if kind == "max" else x.amin(dim=1)
+    valid = and_valid(a.valid, live.any(dim=1), ~_has_null_elem(a))
+    return Val(out, valid, out_type, a.dict_id)
+
+
+@register("array_max", lambda ts: ts[0].element)
+def _array_max(a: Val, out_type: T.Type) -> Val:
+    if isinstance(a.type.element, T.VarcharType):
+        require_sorted_dict(a, "array_max")
+    return _extreme(a, out_type, "max")
+
+
+@register("array_min", lambda ts: ts[0].element)
+def _array_min(a: Val, out_type: T.Type) -> Val:
+    if isinstance(a.type.element, T.VarcharType):
+        require_sorted_dict(a, "array_min")
+    return _extreme(a, out_type, "min")
+
+
+def _sort_key(data: torch.Tensor) -> torch.Tensor:
+    """Order-preserving int64 key: floats through the IEEE754 total-order
+    bit trick (signed zeros equal), so the key orders AND compares like the
+    values themselves."""
+    if data.is_floating_point():
+        f = data.to(torch.float64)
+        f = torch.where(f == 0.0, 0.0, f)
+        b = f.contiguous().view(torch.int64)
+        return torch.where(b < 0, (~b) ^ torch.iinfo(torch.int64).min, b)
+    return data.to(torch.int64)
+
+
+def _lane_order(key: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+    """Per-row order by (class, key): a stable sort by key, then a stable
+    sort by the small class tag (0 value, 1 NULL, 2 padding) — no sentinel
+    key can collide with a real value."""
+    o = torch.argsort(key, dim=1, stable=True)
+    return torch.gather(o, 1, torch.argsort(torch.gather(cls, 1, o), dim=1, stable=True))
+
+
+def _lane_class(a: Val, live: torch.Tensor) -> torch.Tensor:
+    return torch.where(live, 0, torch.where(array_in_bounds(a), 1, 2)).to(torch.uint8)
+
+
+def _distinct_lanes(a: Val, live: torch.Tensor, keep_null: torch.Tensor, out_type) -> Val:
+    """The distinct `live` elements of each row in ascending order, then
+    one NULL where `keep_null` (Presto's array_distinct keeps one NULL)."""
+    key = _sort_key(a.data)
+    order = _lane_order(key, (~live).to(torch.uint8))
+    sdata = torch.gather(a.data, 1, order)
+    skey = torch.gather(key, 1, order)
+    slive = torch.gather(live, 1, order)
+    first = torch.cat([torch.ones_like(slive[:, :1]), skey[:, 1:] != skey[:, :-1]], dim=1)
+    first = first & slive
+    pack = lane_compaction(first)
+    n_live = first.sum(dim=1, dtype=torch.int32)
+    lane = torch.arange(a.data.shape[1], device=a.device)[None, :]
+    out = torch.where(lane < n_live[:, None], torch.gather(sdata, 1, pack), 0)
+    lens = n_live + keep_null.to(torch.int32)
+    ev = None
+    if a.elem_valid is not None:
+        ev = lane < n_live[:, None]
+    return Val(out, a.valid, out_type, a.dict_id, lengths=lens, elem_valid=ev)
+
+
+@register("array_distinct", lambda ts: ts[0])
+def _array_distinct(a: Val, out_type: T.Type) -> Val:
+    return _distinct_lanes(a, _elem_live(a), _has_null_elem(a), out_type)
+
+
+@register("array_sort", lambda ts: ts[0])
+def _array_sort(a: Val, out_type: T.Type) -> Val:
+    """Ascending, NULL elements last (Presto)."""
+    live = _elem_live(a)
+    order = _lane_order(_sort_key(a.data), _lane_class(a, live))
+    data = torch.where(torch.gather(live, 1, order), torch.gather(a.data, 1, order), 0)
+    ev = None if a.elem_valid is None else torch.gather(live, 1, order)
+    return Val(data, a.valid, a.type, a.dict_id, lengths=array_lengths(a), elem_valid=ev)
+
+
+def _needle_codes(a: Val, needle: Val, what: str) -> torch.Tensor:
+    """The needle as a per-row value comparable with the array's elements
+    (a varchar literal resolves in the array's dictionary; absent -> -1)."""
+    if isinstance(needle.type, T.VarcharType) and needle.dict_id != a.dict_id:
+        from .functions import _bisect
+
+        require_sorted_dict(a, what)
+        lit = _require_literal(needle, f"{what} needle")
+        d = a.dictionary or ()
+        code = _bisect(d, lit, "left")
+        code = code if code < len(d) and d[code] == lit else -1
+        return torch.full(a.data.shape[:1], code, dtype=a.data.dtype, device=a.device)
+    nd = needle.data
+    return nd.expand(a.data.shape[0]) if nd.ndim == 0 else nd
+
+
+@register("array_remove", lambda ts: ts[0])
+def _array_remove(a: Val, needle: Val, out_type: T.Type) -> Val:
+    """Drop the elements equal to the needle; NULL elements stay (Presto)."""
+    inb = array_in_bounds(a)
+    eq = a.data == _needle_codes(a, needle, "array_remove")[:, None]
+    if a.elem_valid is not None:
+        eq = eq & a.elem_valid
+    keep = inb & ~eq
+    order = lane_compaction(keep)
+    ev = None if a.elem_valid is None else torch.gather(a.elem_valid, 1, order)
+    return Val(torch.gather(a.data, 1, order), and_valid(a.valid, needle.valid), a.type,
+               a.dict_id, lengths=keep.sum(dim=1, dtype=torch.int32), elem_valid=ev)
+
+
+def _pair_codes(a: Val, b: Val):
+    """Both arrays' element data in one representation (dictionaries
+    unified, dtypes promoted)."""
+    da, db, did = a.data, b.data, a.dict_id
+    if (a.dict_id is not None or b.dict_id is not None) and a.dict_id != b.dict_id:
+        da, db, did = unify_dictionaries(a, b)
+    if da.dtype != db.dtype:
+        wide = torch.promote_types(da.dtype, db.dtype)
+        da, db = da.to(wide), db.to(wide)
+    return da, db, did
+
+
+def _in_other(a: Val, b: Val):
+    """(data of a, dict id, a's elements present in b's live elements)."""
+    da, db, did = _pair_codes(a, b)
+    hit = ((da[:, :, None] == db[:, None, :]) & _elem_live(b)[:, None, :]).any(dim=2)
+    return da, did, hit
+
+
+@register("arrays_overlap", _bool_infer)
+def _arrays_overlap(a: Val, b: Val, out_type: T.Type) -> Val:
+    """True when a non-NULL element is in both; NULL when none is but
+    either holds a NULL element (Presto)."""
+    _da, _did, hit = _in_other(a, b)
+    any_hit = (hit & _elem_live(a)).any(dim=1)
+    some_null = _has_null_elem(a) | _has_null_elem(b)
+    return Val(any_hit, and_valid(a.valid, b.valid, any_hit | ~some_null), T.BOOLEAN)
+
+
+def _set_op(a: Val, b: Val, out_type, keep_fn, null_fn) -> Val:
+    da, did, hit = _in_other(a, b)
+    masked = Val(da, and_valid(a.valid, b.valid), a.type, did, lengths=array_lengths(a),
+                 elem_valid=a.elem_valid)
+    keep_null = null_fn(_has_null_elem(a), _has_null_elem(b))
+    return _distinct_lanes(masked, keep_fn(_elem_live(a), hit), keep_null, out_type)
+
+
+@register("array_intersect", lambda ts: ts[0])
+def _array_intersect(a: Val, b: Val, out_type: T.Type) -> Val:
+    return _set_op(a, b, out_type, lambda la, hit: la & hit, lambda na, nb: na & nb)
+
+
+@register("array_except", lambda ts: ts[0])
+def _array_except(a: Val, b: Val, out_type: T.Type) -> Val:
+    return _set_op(a, b, out_type, lambda la, hit: la & ~hit, lambda na, nb: na & ~nb)
+
+
+@register("array_union", lambda ts: ts[0])
+def _array_union(a: Val, b: Val, out_type: T.Type) -> Val:
+    da, db, did = _pair_codes(a, b)
+    live = torch.cat([_elem_live(a), _elem_live(b)], dim=1)
+    merged = Val(torch.cat([da, db], dim=1), and_valid(a.valid, b.valid), a.type, did,
+                 lengths=torch.full(da.shape[:1], live.shape[1], dtype=torch.int32,
+                                    device=da.device),
+                 elem_valid=live)
+    return _distinct_lanes(merged, live, _has_null_elem(a) | _has_null_elem(b), out_type)
+
+
+@register("slice", lambda ts: ts[0])
+def _slice(a: Val, start: Val, length: Val, out_type: T.Type) -> Val:
+    s0 = int(_require_literal(start, "slice start"))
+    ln = int(_require_literal(length, "slice length"))
+    w = a.data.shape[1]
+    lens = array_lengths(a).to(torch.int64)
+    base = torch.full_like(lens, s0 - 1) if s0 > 0 else lens + s0
+    lane = torch.arange(w, device=a.device)[None, :]
+    idx = base[:, None] + lane
+    inb = (idx >= 0) & (idx < lens[:, None]) & (lane < ln)
+    idxc = torch.clamp(idx, 0, max(w - 1, 0))
+    ev = inb
+    if a.elem_valid is not None:
+        ev = ev & torch.gather(a.elem_valid, 1, idxc)
+    return Val(torch.gather(a.data, 1, idxc), a.valid, a.type, a.dict_id,
+               lengths=inb.sum(dim=1, dtype=torch.int32), elem_valid=ev)
+
+
+@register("array_concat", lambda ts: ts[0])
+def _array_concat(a: Val, b: Val, out_type: T.Type) -> Val:
+    """ARRAY || ARRAY (reference ArrayConcatFunction): output lane j is a's
+    element j while j < len(a), then b's element j - len(a)."""
+    if a.data.ndim != 2 or b.data.ndim != 2:
+        raise TypeError("array_concat requires array values")
+    da, db, did = _pair_codes(a, b)
+    wa, wb = da.shape[1], db.shape[1]
+    la, lb = array_lengths(a), array_lengths(b)
+    j = torch.arange(wa + wb, device=da.device)[None, :]
+    from_a = j < la[:, None]
+    ia = torch.clamp(j, 0, wa - 1).expand(da.shape[0], -1)
+    ib = torch.clamp(j - la[:, None], 0, wb - 1)
+    data = torch.where(from_a, torch.gather(da, 1, ia), torch.gather(db, 1, ib))
+    ones = lambda x: torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)  # noqa: E731
+    eva = ones(da) if a.elem_valid is None else a.elem_valid
+    evb = ones(db) if b.elem_valid is None else b.elem_valid
+    ev = torch.where(from_a, torch.gather(eva, 1, ia), torch.gather(evb, 1, ib))
+    return Val(data, and_valid(a.valid, b.valid), out_type, did, lengths=la + lb,
+               elem_valid=ev)
+
+
+@register("cosine_distance", _double_infer)
+def _cosine_distance(a: Val, b: Val, out_type: T.Type) -> Val:
+    """1 - cosine similarity of two numeric arrays (reference
+    ArrayDistanceFunctions)."""
+    if a.lengths is None or b.lengths is None:
+        raise TypeError("cosine_distance requires array values")
+    x = a.data.to(torch.float64)
+    y = b.data.to(torch.float64)
+    w = min(x.shape[1], y.shape[1])
+    x, y = x[:, :w], y[:, :w]
+    inb = torch.arange(w, device=x.device)[None, :] < torch.minimum(a.lengths, b.lengths)[:, None]
+    x = torch.where(inb, x, 0.0)
+    y = torch.where(inb, y, 0.0)
+    num = (x * y).sum(dim=1)
+    den = torch.sqrt((x * x).sum(dim=1)) * torch.sqrt((y * y).sum(dim=1))
+    return Val(1.0 - num / torch.where(den == 0, 1.0, den), and_valid(a.valid, b.valid, den != 0),
+               T.DOUBLE)
+
+
+# ---------------------------------------------------------------------------
+# regex splits + maps (reference RegexpFunctions, MapConcatFunction,
+# SplitToMapFunction, CosineSimilarityFunction)
+# ---------------------------------------------------------------------------
+
+
+@register("regexp_split", lambda ts: T.ArrayType(T.VARCHAR))
+def _regexp_split(a: Val, patv: Val, out_type: T.Type) -> Val:
+    pat = re.compile(_require_literal(patv, "regexp pattern"))
+    d = a.dictionary
+    if d is None:
+        raise TypeError("regexp_split: varchar value lost its dictionary")
+    return dict_split_val(a, [pat.split(x) for x in d], "regexp_split")
+
+
+@register("regexp_extract_all", lambda ts: T.ArrayType(T.VARCHAR))
+def _regexp_extract_all(a: Val, patv: Val, *rest, out_type: T.Type) -> Val:
+    pat = re.compile(_require_literal(patv, "regexp pattern"))
+    group = int(_require_literal(rest[0], "group")) if rest else 0
+    d = a.dictionary
+    if d is None:
+        raise TypeError("regexp_extract_all: varchar value lost its dictionary")
+    parts = [[m.group(group) or "" for m in pat.finditer(x)] for x in d]
+    return dict_split_val(a, parts, "regexp_extract_all")
+
+
+@register("map_concat", lambda ts: ts[0])
+def _map_concat(a: Val, *rest: Val, out_type: T.Type) -> Val:
+    """Union of maps; on duplicate keys the LAST map wins (reference
+    MapConcatFunction, variadic)."""
+    out = a
+    for b in rest:
+        out = _map_concat2(out, b)
+    return out
+
+
+def _map_concat2(a: Val, b: Val) -> Val:
+    if a.keys is None or b.keys is None:
+        raise TypeError("map_concat requires map values")
+    kda, kdb, k_did = _pair_codes(a.keys, b.keys)
+    vda, vdb, v_did = _pair_codes(a, b)
+    wa, wb = kda.shape[1], kdb.shape[1]
+    kdata = torch.cat([kda, kdb], dim=1)
+    vdata = torch.cat([vda, vdb], dim=1)
+    live = torch.cat([array_in_bounds(a), array_in_bounds(b)], dim=1)
+    ones = lambda x: torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)  # noqa: E731
+    ev = torch.cat([ones(vda) if a.elem_valid is None else a.elem_valid,
+                    ones(vdb) if b.elem_valid is None else b.elem_valid], dim=1)
+    # kill an entry when any LATER live entry has the same key
+    W = wa + wb
+    eq = kdata[:, :, None] == kdata[:, None, :]
+    lane = torch.arange(W, device=kdata.device)
+    later = lane[None, :] > lane[:, None]
+    dup = (eq & later[None] & live[:, None, :]).any(dim=2)
+    keep = live & ~dup
+    order = lane_compaction(keep)
+    lens = keep.sum(dim=1, dtype=torch.int32)
+    keys = Val(torch.gather(kdata, 1, order), None, a.keys.type, k_did, lengths=lens)
+    return Val(torch.gather(vdata, 1, order), and_valid(a.valid, b.valid), a.type, v_did,
+               lengths=lens, elem_valid=torch.gather(ev, 1, order), keys=keys)
+
+
+@register("split_to_map", lambda ts: T.MapType(T.VARCHAR, T.VARCHAR))
+def _split_to_map(a: Val, entry_d: Val, kv_d: Val, out_type: T.Type) -> Val:
+    """split_to_map('a=1,b=2', ',', '=') — one host parse per dictionary
+    entry, padded to the widest entry count (reference SplitToMapFunction)."""
+    ed = _require_literal(entry_d, "split_to_map entry delimiter")
+    kd = _require_literal(kv_d, "split_to_map key/value delimiter")
+    d = a.dictionary
+    if d is None:
+        raise TypeError("split_to_map expects a varchar value")
+    parsed = []
+    for x in d:
+        pairs = []
+        for part in x.split(ed):
+            if not part:
+                continue
+            k, _, v = part.partition(kd)
+            pairs.append((k, v))
+        parsed.append(pairs)
+    width = max((len(p) for p in parsed), default=0) or 1
+    keypool = tuple(sorted({k for ps in parsed for k, _v in ps})) or ("",)
+    valpool = tuple(sorted({v for ps in parsed for _k, v in ps})) or ("",)
+    kidx = {x: i for i, x in enumerate(keypool)}
+    vidx = {x: i for i, x in enumerate(valpool)}
+    rows = max(len(d), 1)
+    kmat = np.zeros((rows, width), np.int32)
+    vmat = np.zeros((rows, width), np.int32)
+    lens = np.zeros(rows, np.int32)
+    for i, ps in enumerate(parsed):
+        lens[i] = len(ps)
+        for j, (k, v) in enumerate(ps):
+            kmat[i, j] = kidx[k]
+            vmat[i, j] = vidx[v]
+    codes = torch.clamp(a.data.to(torch.int64), 0, rows - 1)
+    tab = lambda x: to_tensor(x, torch.int32, a.device)[codes]  # noqa: E731
+    klens = tab(lens)
+    keys = Val(tab(kmat), None, T.ArrayType(T.VARCHAR), intern_dictionary(keypool),
+               lengths=klens)
+    return Val(tab(vmat), a.valid, T.MapType(T.VARCHAR, T.VARCHAR), intern_dictionary(valpool),
+               lengths=klens, keys=keys)
+
+
+@register("cosine_similarity", _double_infer)
+def _cosine_similarity(a: Val, b: Val, out_type: T.Type) -> Val:
+    """cosine_similarity(map(varchar,double), map(varchar,double)) — sparse
+    vectors keyed by string (reference CosineSimilarityFunction)."""
+    if a.keys is None or b.keys is None:
+        raise TypeError("cosine_similarity expects two map values")
+    la, lb = _elem_live(a), _elem_live(b)
+    va = torch.where(la, a.data.to(torch.float64), 0.0)
+    vb = torch.where(lb, b.data.to(torch.float64), 0.0)
+    kad, kbd, _ = _pair_codes(a.keys, b.keys)
+    keq = (kad[:, :, None] == kbd[:, None, :]) & la[:, :, None] & lb[:, None, :]
+    dot = (keq * va[:, :, None] * vb[:, None, :]).sum(dim=(1, 2))
+    denom = torch.sqrt((va * va).sum(dim=1)) * torch.sqrt((vb * vb).sum(dim=1))
+    out = torch.where(denom > 0, dot / torch.clamp(denom, min=1e-300), float("nan"))
+    return Val(out, and_valid(a.valid, b.valid), T.DOUBLE)
+
+
+# ---------------------------------------------------------------------------
+# quantile-sketch readers (qdigest_agg states, ops/qsketch.py)
+# ---------------------------------------------------------------------------
+
+
+@register("value_at_quantile", _double_infer)
+def _value_at_quantile(sk: Val, q: Val, out_type: T.Type) -> Val:
+    from ..ops import qsketch as qs
+
+    if sk.data.ndim != 2:
+        raise TypeError("value_at_quantile expects a qdigest sketch value")
+    frac = float(_require_literal(q, "value_at_quantile fraction"))
+    vals = qs.percentile_value(sk.data, frac)
+    return Val(vals.to(torch.float64), and_valid(sk.valid, sk.data.sum(dim=1) > 0), T.DOUBLE)
+
+
+@register("quantile_at_value", _double_infer)
+def _quantile_at_value(sk: Val, v: Val, out_type: T.Type) -> Val:
+    """Inverse read: the rank (0..1) of `v` in the sketch's distribution —
+    the counts of the bins below the value's bin plus half its own."""
+    from ..ops import qsketch as qs
+
+    if sk.data.ndim != 2:
+        raise TypeError("quantile_at_value expects a qdigest sketch value")
+    bucket = qs.bucket_of(v.data.to(torch.float64))
+    if bucket.ndim == 0:
+        bucket = bucket.expand(sk.data.shape[0])
+    total = sk.data.sum(dim=1)
+    lane = torch.arange(sk.data.shape[1], device=sk.device)[None, :]
+    below = torch.where(lane < bucket[:, None], sk.data, 0).sum(dim=1)
+    own = torch.gather(sk.data, 1, bucket[:, None])[:, 0]
+    rank = (below + 0.5 * own) / torch.clamp(total, min=1)
+    return Val(rank, and_valid(sk.valid, v.valid, total > 0), T.DOUBLE)
+
+
+# ---------------------------------------------------------------------------
+# ML scalars (reference presto-ml regress/classify over learned models,
+# ops/mlreg.py's MODEL layout)
+# ---------------------------------------------------------------------------
+
+
+def _model_lanes(model: Val, n: int):
+    """(model data, model lengths) broadcast to n rows."""
+    from ..ops import mlreg
+
+    mdata = mlreg.logical_values(model.data, model.type)
+    mlens = array_lengths(model)
+    if mdata.shape[0] == 1 and n > 1:
+        mdata = mdata.expand(n, -1)
+        mlens = mlens.expand(n)
+    return mdata, mlens
+
+
+@register("regress", _double_infer)
+def _regress(features: Val, model: Val, out_type: T.Type) -> Val:
+    """regress(features, model): dot(features, weights) + intercept."""
+    from ..ops import mlreg
+
+    if not isinstance(features.type, T.ArrayType) or not isinstance(model.type, T.ArrayType):
+        raise TypeError("regress takes (features array, model array)")
+    fdata = mlreg.logical_values(features.data, features.type)
+    mdata, mlens = _model_lanes(model, fdata.shape[0])
+    if mdata.shape[1] == mlreg.MODEL_WIDTH:
+        # a learned model: the two trailing lanes are label bounds, not
+        # weights (a literal of exactly MODEL_WIDTH lanes reads the same)
+        mdata = mdata[:, :mlreg.MODEL_WIDTH - 2]
+        mlens = torch.clamp(mlens, max=mlreg.MODEL_WIDTH - 2)
+    out = mlreg.predict(fdata, array_lengths(features), mdata, mlens)
+    return Val(out, and_valid(features.valid, model.valid), T.DOUBLE)
+
+
+@register("classify", _bigint_infer)
+def _classify(features: Val, model: Val, out_type: T.Type) -> Val:
+    """classify(features, model): the ridge score rounded and CLAMPED to
+    the label range the model recorded at training time (ops/mlreg.py)."""
+    from ..ops import mlreg
+
+    v = _regress(features, model, out_type=T.DOUBLE)
+    score = v.data
+    mdata, _ = _model_lanes(model, score.shape[0])
+    if mdata.shape[1] == mlreg.MODEL_WIDTH:
+        score = torch.minimum(torch.maximum(score, mdata[:, -2]), mdata[:, -1])
+    return Val(torch.round(score).to(torch.int64), v.valid, T.BIGINT)
+
+
+# ---------------------------------------------------------------------------
+# statistical distribution functions (reference MathFunctions.java's
+# normal_cdf/beta_cdf/... family): torch.special where it has the function
+# (ndtr, ndtri, gammainc, gammaincc); the regularized incomplete beta, which
+# torch lacks, as a fixed-count continued fraction here
+# ---------------------------------------------------------------------------
+
+BETA_CF_EPS = 1e-15  # relative step of the continued fraction at convergence
+BETA_CF_MAX_STEPS = 2000
+
+
+def betainc(a, b, x):
+    """Regularized incomplete beta I_x(a, b) (Numerical Recipes' betacf,
+    modified Lentz): the continued fraction converges fast for
+    x < (a + 1) / (a + b + 2); beyond it, the symmetry I_x(a, b) =
+    1 - I_{1-x}(b, a). Steps go in batches of 8 until every element's last
+    step changed its value by less than BETA_CF_EPS (one host read per
+    batch). NaN outside 0 <= x <= 1."""
+    a, b, x = torch.broadcast_tensors(a, b, x)
+    swap = x > (a + 1.0) / (a + b + 2.0)
+    aa = torch.where(swap, b, a)
+    bb = torch.where(swap, a, b)
+    xx = torch.where(swap, 1.0 - x, x)
+    tiny = 1e-300
+    qab, qap, qam = aa + bb, aa + 1.0, aa - 1.0
+    c = torch.ones_like(xx)
+    d = 1.0 - qab * xx / qap
+    d = 1.0 / torch.where(torch.abs(d) < tiny, tiny, d)
+    h = d.clone()
+    for m in range(1, BETA_CF_MAX_STEPS + 1):
+        m2 = 2.0 * m
+        for num in (m * (bb - m) * xx / ((qam + m2) * (aa + m2)),
+                    -(aa + m) * (qab + m) * xx / ((aa + m2) * (qap + m2))):
+            d = 1.0 + num * d
+            d = 1.0 / torch.where(torch.abs(d) < tiny, tiny, d)
+            c = 1.0 + num / c
+            c = torch.where(torch.abs(c) < tiny, tiny, c)
+            delta = d * c
+            h = h * delta
+        if m % 8 == 0 and not bool((torch.abs(delta - 1.0) >= BETA_CF_EPS).any()):
+            break
+    safe = torch.clamp(xx, 1e-300, 1.0 - 1e-16)
+    lfront = (torch.lgamma(aa + bb) - torch.lgamma(aa) - torch.lgamma(bb)
+              + aa * torch.log(safe) + bb * torch.log1p(-safe))
+    front = torch.exp(lfront) * h / aa
+    out = torch.where(swap, 1.0 - front, front)
+    out = torch.where(x == 0.0, 0.0, torch.where(x == 1.0, 1.0, out))
+    # outside [0, 1] (Presto raises): NaN, as scipy's and jax's betainc
+    return torch.where((x < 0.0) | (x > 1.0), float("nan"), out)
+
+
+def _cdf(name: str, fn):
+    """cdf(p1, [p2,] value) family: doubles in, double out, NULL on NULL."""
+
+    @register(name, _double_infer)
+    def _impl(*vals, out_type: T.Type, _fn=fn) -> Val:
+        return Val(_fn(*(_to_double(v) for v in vals)),
+                   and_valid(*(v.valid for v in vals)), T.DOUBLE)
+
+    return _impl
+
+
+def _laplace(m, b, x):
+    z = (x - m) / b
+    return torch.where(z < 0, 0.5 * torch.exp(z), 1.0 - 0.5 * torch.exp(-z))
+
+
+def _binomial(n, p, k):
+    k = torch.floor(k)
+    return betainc(torch.clamp(n - k, min=1e-12), k + 1.0, 1.0 - p)
+
+
+_cdf("normal_cdf", lambda m, sd, x: torch.special.ndtr((x - m) / sd))
+_cdf("inverse_normal_cdf", lambda m, sd, p: m + sd * torch.special.ndtri(p))
+_cdf("beta_cdf", betainc)
+_cdf("cauchy_cdf", lambda m, g, x: 0.5 + torch.atan((x - m) / g) / math.pi)
+_cdf("gamma_cdf", lambda sh, sc, x: torch.special.gammainc(sh, torch.clamp(x / sc, min=0.0)))
+_cdf("laplace_cdf", _laplace)
+_cdf("weibull_cdf",
+     lambda a, b, x: 1.0 - torch.exp(-torch.pow(torch.clamp(x, min=0.0) / b, a)))
+_cdf("chi_squared_cdf",
+     lambda df, x: torch.special.gammainc(df / 2.0, torch.clamp(x, min=0.0) / 2.0))
+_cdf("poisson_cdf", lambda lam, k: torch.where(
+    k < 0, 0.0, torch.special.gammaincc(torch.floor(torch.clamp(k, min=0.0)) + 1.0, lam)))
+_cdf("binomial_cdf", _binomial)
+
+
+@register("inverse_beta_cdf", _double_infer)
+def _inverse_beta_cdf(a: Val, b: Val, p: Val, out_type: T.Type) -> Val:
+    """Inverse of beta_cdf: 8 bisection steps on [0, 1], then Newton steps
+    on the beta density kept inside the bisection bracket, until every
+    step is below 1e-15 (the JAX package bisects 64 times)."""
+    av, bv, target = torch.broadcast_tensors(_to_double(a), _to_double(b), _to_double(p))
+    lo = torch.zeros_like(target)
+    hi = torch.ones_like(target)
+    for _ in range(8):
+        mid = 0.5 * (lo + hi)
+        go_hi = betainc(av, bv, mid) < target
+        lo = torch.where(go_hi, mid, lo)
+        hi = torch.where(go_hi, hi, mid)
+    x = 0.5 * (lo + hi)
+    lbeta = torch.lgamma(av) + torch.lgamma(bv) - torch.lgamma(av + bv)
+    for _ in range(60):
+        f = betainc(av, bv, x) - target
+        lo = torch.where(f < 0, x, lo)
+        hi = torch.where(f < 0, hi, x)
+        pdf = torch.exp((av - 1.0) * torch.log(x) + (bv - 1.0) * torch.log1p(-x) - lbeta)
+        nxt = x - f / pdf
+        nxt = torch.where((nxt > lo) & (nxt < hi) & torch.isfinite(nxt), nxt, 0.5 * (lo + hi))
+        step = torch.abs(nxt - x)
+        x = nxt
+        if not bool((step > 1e-15 * torch.clamp(torch.abs(x), min=1e-300)).any()):
+            break
+    return Val(x, and_valid(a.valid, b.valid, p.valid), T.DOUBLE)
+
+
+# ---------------------------------------------------------------------------
+# geometry (reference presto-geospatial GeoFunctions.java over
+# ops/geometry.py): a geometry value is an ARRAY(DOUBLE) of interleaved
+# [x0, y0, x1, y1, ...] with lengths = 2 * vertex count, so st_point
+# values compose with the polygon functions
+# ---------------------------------------------------------------------------
+
+
+def _broadcast_rows(*xs):
+    """Bring 0-d (constant) operands to the row count of the others."""
+    n = max((x.shape[0] for x in xs if x.ndim), default=1)
+    return [x.expand(n) if x.ndim == 0 else x for x in xs]
+
+
+@register("st_point", lambda ts: T.ArrayType(T.DOUBLE))
+def _st_point(x: Val, y: Val, out_type: T.Type) -> Val:
+    xd, yd = _broadcast_rows(_to_double(x), _to_double(y))
+    data = torch.stack([xd, yd], dim=1)
+    return Val(data, and_valid(x.valid, y.valid), T.ArrayType(T.DOUBLE),
+               lengths=torch.full(data.shape[:1], 2, dtype=torch.int32, device=data.device))
+
+
+def _point_xy(p: Val, what: str):
+    if p.lengths is None or p.data.shape[1] < 2:
+        raise TypeError(f"{what} requires a POINT (st_point) value")
+    return p.data[:, 0], p.data[:, 1]
+
+
+@register("st_x", _double_infer)
+def _st_x(p: Val, out_type: T.Type) -> Val:
+    return Val(_point_xy(p, "st_x")[0], p.valid, T.DOUBLE)
+
+
+@register("st_y", _double_infer)
+def _st_y(p: Val, out_type: T.Type) -> Val:
+    return Val(_point_xy(p, "st_y")[1], p.valid, T.DOUBLE)
+
+
+@register("st_distance", _double_infer)
+def _st_distance(a: Val, b: Val, out_type: T.Type) -> Val:
+    ax, ay = _point_xy(a, "st_distance")
+    bx, by = _point_xy(b, "st_distance")
+    return Val(torch.sqrt((ax - bx) ** 2 + (ay - by) ** 2), and_valid(a.valid, b.valid),
+               T.DOUBLE)
+
+
+def _geom_verts(g: Val, what: str):
+    """Interleaved lanes -> ((n, V, 2) vertices, (n,) counts)."""
+    if g.lengths is None or g.data.ndim != 2:
+        raise TypeError(f"{what} requires a geometry value")
+    d = g.data.to(torch.float64)
+    if d.shape[1] % 2:
+        d = d[:, :-1]
+    return d.reshape(d.shape[0], -1, 2), torch.div(g.lengths, 2, rounding_mode="floor")
+
+
+def _wkt_parse_val(a: Val, what: str) -> Val:
+    from ..ops import geometry as geo
+
+    d = a.dictionary
+    if d is None:
+        raise TypeError(f"{what} expects a varchar WKT value")
+    geoms, oks = [], np.zeros(max(len(d), 1), np.bool_)
+    for i, x in enumerate(d):
+        try:
+            geoms.append(geo.parse_wkt(x)[1])
+            oks[i] = True
+        except ValueError:
+            geoms.append(np.zeros((1, 2), np.float64))
+    verts, nv = geo.pack_vertices(geoms or [np.zeros((1, 2), np.float64)])
+    codes = torch.clamp(a.data.to(torch.int64), 0, max(len(d) - 1, 0))
+    data = to_tensor(verts.reshape(verts.shape[0], -1), torch.float64, a.device)[codes]
+    lens = to_tensor(nv * 2, torch.int32, a.device)[codes]
+    valid = and_valid(a.valid, to_tensor(oks, torch.bool, a.device)[codes])
+    return Val(data, valid, T.ArrayType(T.DOUBLE), lengths=lens)
+
+
+for _geo_name in ("st_geometryfromtext", "st_polygon", "st_linefromtext"):
+    register(_geo_name, lambda ts: T.ArrayType(T.DOUBLE))(
+        lambda a, out_type, _n=_geo_name: _wkt_parse_val(a, _n))
+
+
+def _broadcast_geoms(a: Val, b: Val, what: str):
+    va, na = _geom_verts(a, what)
+    vb, nb = _geom_verts(b, what)
+    n = max(va.shape[0], vb.shape[0])
+    if va.shape[0] == 1 and n > 1:
+        va, na = va.expand(n, -1, -1), na.expand(n)
+    if vb.shape[0] == 1 and n > 1:
+        vb, nb = vb.expand(n, -1, -1), nb.expand(n)
+    return va, na, vb, nb
+
+
+@register("st_contains", _bool_infer)
+def _st_contains(g: Val, p: Val, out_type: T.Type) -> Val:
+    """st_contains(geometry, geometry): every vertex of the right operand
+    inside the left ring AND no proper edge crossing (boundary contact
+    allowed)."""
+    from ..ops import geometry as geo
+
+    va, na, vb, nb = _broadcast_geoms(g, p, "st_contains")
+    return Val(geo.contains_all_vertices(va, na, vb, nb), and_valid(g.valid, p.valid),
+               T.BOOLEAN)
+
+
+@register("st_within", _bool_infer)
+def _st_within(p: Val, g: Val, out_type: T.Type) -> Val:
+    return _st_contains(g, p, out_type=T.BOOLEAN)
+
+
+@register("st_intersects", _bool_infer)
+def _st_intersects(a: Val, b: Val, out_type: T.Type) -> Val:
+    from ..ops import geometry as geo
+
+    va, na, vb, nb = _broadcast_geoms(a, b, "st_intersects")
+    return Val(geo.polygons_intersect(va, na, vb, nb), and_valid(a.valid, b.valid), T.BOOLEAN)
+
+
+@register("st_disjoint", _bool_infer)
+def _st_disjoint(a: Val, b: Val, out_type: T.Type) -> Val:
+    v = _st_intersects(a, b, out_type=T.BOOLEAN)
+    return Val(~v.data, v.valid, T.BOOLEAN)
+
+
+def _geom_measure(name: str, fn_name: str):
+    @register(name, _double_infer)
+    def _impl(g: Val, out_type: T.Type) -> Val:
+        from ..ops import geometry as geo
+
+        v, nv = _geom_verts(g, name)
+        return Val(getattr(geo, fn_name)(v, nv), g.valid, T.DOUBLE)
+
+    return _impl
+
+
+_geom_measure("st_area", "polygon_area")
+_geom_measure("st_length", "line_length")
+_geom_measure("st_perimeter", "ring_perimeter")
+
+
+@register("st_centroid", lambda ts: T.ArrayType(T.DOUBLE))
+def _st_centroid(g: Val, out_type: T.Type) -> Val:
+    from ..ops import geometry as geo
+
+    v, nv = _geom_verts(g, "st_centroid")
+    data = torch.stack(geo.polygon_centroid(v, nv), dim=1)
+    return Val(data, g.valid, T.ArrayType(T.DOUBLE),
+               lengths=torch.full(data.shape[:1], 2, dtype=torch.int32, device=data.device))
+
+
+def _geom_reduce(g: Val, what: str, axis_sel: int, kind: str) -> Val:
+    v, nv = _geom_verts(g, what)
+    lanes = torch.arange(v.shape[1], device=v.device)[None, :] < nv[:, None]
+    coord = v[..., axis_sel]
+    if kind == "min":
+        out = torch.where(lanes, coord, float("inf")).amin(dim=1)
+    else:
+        out = torch.where(lanes, coord, float("-inf")).amax(dim=1)
+    return Val(out, and_valid(g.valid, nv > 0), T.DOUBLE)
+
+
+for _nm, _ax, _kind in (("st_xmin", 0, "min"), ("st_xmax", 0, "max"),
+                        ("st_ymin", 1, "min"), ("st_ymax", 1, "max")):
+    register(_nm, _double_infer)(
+        lambda g, out_type, _n=_nm, _a=_ax, _k=_kind: _geom_reduce(g, _n, _a, _k))
+
+
+@register("st_envelope", lambda ts: T.ArrayType(T.DOUBLE))
+def _st_envelope(g: Val, out_type: T.Type) -> Val:
+    """Bounding-box polygon (closed 5-vertex ring)."""
+    x0 = _geom_reduce(g, "st_envelope", 0, "min").data
+    x1 = _geom_reduce(g, "st_envelope", 0, "max").data
+    y0 = _geom_reduce(g, "st_envelope", 1, "min").data
+    y1 = _geom_reduce(g, "st_envelope", 1, "max").data
+    data = torch.stack([x0, y0, x1, y0, x1, y1, x0, y1, x0, y0], dim=1)
+    return Val(data, g.valid, T.ArrayType(T.DOUBLE),
+               lengths=torch.full(data.shape[:1], 10, dtype=torch.int32, device=data.device))
+
+
+@register("st_isclosed", _bool_infer)
+def _st_isclosed(g: Val, out_type: T.Type) -> Val:
+    v, nv = _geom_verts(g, "st_isclosed")
+    li = torch.clamp(nv - 1, min=0).to(torch.int64)
+    last = torch.gather(v, 1, li[:, None, None].expand(-1, 1, 2))[:, 0]
+    return Val((v[:, 0] == last).all(dim=1) & (nv >= 3), g.valid, T.BOOLEAN)
+
+
+@register("st_isempty", _bool_infer)
+def _st_isempty(g: Val, out_type: T.Type) -> Val:
+    return Val(_geom_verts(g, "st_isempty")[1] == 0, g.valid, T.BOOLEAN)
+
+
+@register("st_numpoints", _bigint_infer)
+def _st_numpoints(g: Val, out_type: T.Type) -> Val:
+    return Val(_geom_verts(g, "st_numpoints")[1].to(torch.int64), g.valid, T.BIGINT)

@@ -18,11 +18,13 @@ bound); the live group count is a device scalar.
 Aggregate functions ported: count/count_star/sum/min/max/avg/checksum,
 min_by/max_by, percentile (approx_percentile, exact by selection), the
 HyperLogLog sketch (approx_distinct, approx_set, merge), the quantile
-sketch (ops/qsketch.py) and the central moments behind stddev, variance,
-skewness and kurtosis (ops/moments.py), with SQL null semantics (nulls
-don't contribute; empty-group sum/min/max = NULL, count = 0). The
-collection and regression aggregates of the JAX package raise "not ported
-yet".
+sketch (ops/qsketch.py), the central moments behind stddev, variance,
+skewness and kurtosis (ops/moments.py), the collection aggregates
+(array_agg, map_agg, histogram, map_union, multimap_agg,
+numeric_histogram: padded (groups, width) blocks whose width the executor
+grows on overflow, the `$collect_need` protocol) and the linear-regression
+accumulators (ops/mlreg.py), with SQL null semantics (nulls don't
+contribute; empty-group sum/min/max = NULL, count = 0).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from .. import types as T
 from ..expr.compiler import evaluate
-from ..expr.functions import NotPortedError, Val
+from ..expr.functions import NotPortedError, Val, lane_compaction
 from ..page import Block, Page, to_tensor
 from .hashing import hash_rows, unsigned_order_key
 
@@ -44,10 +46,19 @@ PORTED = ("count", "count_star", "sum", "min", "max", "avg", "checksum",
           "min_by", "max_by", "percentile",
           "approx_distinct", "hll_registers", "hll_merge",
           "qsketch", "qsketch_merge",
-          "cmoments", "cmoments_merge")
+          "cmoments", "cmoments_merge",
+          "array_agg", "map_agg", "histogram", "map_union", "multimap_agg", "num_hist",
+          "linreg", "linreg_acc", "linreg_merge")
 # aggregates whose state is a per-group sketch or accumulator row
 SKETCH_FUNCS = ("approx_distinct", "hll_registers", "hll_merge",
-                "qsketch", "qsketch_merge", "cmoments", "cmoments_merge")
+                "qsketch", "qsketch_merge", "cmoments", "cmoments_merge",
+                "linreg", "linreg_acc", "linreg_merge")
+# aggregates whose result is a padded collection block (reference
+# ArrayAggregationFunction, MapAggregationFunction, HistogramAggregation,
+# MapUnionAggregation, MultimapAggregationFunction,
+# NumericHistogramAggregation)
+COLLECTION_AGGS = ("array_agg", "map_agg", "histogram", "map_union", "multimap_agg",
+                   "num_hist")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -334,14 +345,19 @@ def positional_reduce(spec: AggSpec, value, by_key, contributes, gid, num_groups
     return _reduce_by(spec.func, value, by_key, contributes, gid, num_groups)
 
 
-def sketch_block(spec: AggSpec, data, valid, live, gid, num_groups: int) -> Block:
-    """The HyperLogLog, quantile-sketch and central-moments aggregates of
-    rows by group id `gid`: one block of `num_groups` rows, the estimate or
-    the mergeable state."""
+def sketch_block(spec: AggSpec, data, valid, live, gid, num_groups: int,
+                 value: Optional[Val] = None, label: Optional[Val] = None) -> Block:
+    """The HyperLogLog, quantile-sketch, central-moments and regression
+    aggregates of rows by group id `gid`: one block of `num_groups` rows,
+    the estimate or the mergeable state. The regression aggregates take
+    the feature array `value` and the label `label`, in `gid`'s row order
+    (sorted)."""
     from . import moments as mo
     from . import qsketch as qs
 
     func = spec.func
+    if func in ("linreg", "linreg_acc", "linreg_merge"):
+        return _linreg_block(spec, data, valid, live, gid, num_groups, value, label)
     # hll_merge reads every live row's registers, as the reference does
     contributes = live if valid is None or func == "hll_merge" else (live & valid)
     if func in ("approx_distinct", "hll_registers"):
@@ -361,6 +377,237 @@ def sketch_block(spec: AggSpec, data, valid, live, gid, num_groups: int) -> Bloc
     return Block(acc, T.ArrayType(T.DOUBLE), None,
                  lengths=torch.full((num_groups,), mo.ACC_WIDTH, dtype=torch.int32,
                                     device=acc.device))
+
+
+def _linreg_block(spec, data, valid, live, gid, num_groups, value, label) -> Block:
+    from . import mlreg
+
+    contributes = live if valid is None else (live & valid)
+    if spec.func == "linreg_merge":
+        acc = mlreg.merge_accumulators(data, contributes, gid, num_groups)
+    else:
+        if label.valid is not None:
+            contributes = contributes & label.valid
+        lens = value.lengths
+        if lens is None:
+            lens = torch.full(data.shape[:1], data.shape[1], dtype=torch.int32,
+                              device=data.device)
+        acc = mlreg.group_accumulate(mlreg.logical_values(data, value.type), lens,
+                                     mlreg.logical_values(label.data, label.type),
+                                     contributes, gid, num_groups)
+    has = None
+    if spec.func == "linreg":
+        acc, has = mlreg.solve_weights(acc)  # an empty group has a NULL model
+    return Block(acc, T.ArrayType(T.DOUBLE), has,
+                 lengths=torch.full(acc.shape[:1], acc.shape[1], dtype=torch.int32,
+                                    device=acc.device))
+
+
+# ---------------------------------------------------------------------------
+# collection aggregates over rows sorted by group id: each group's rows are
+# one contiguous run, gathered into a (groups, width) block. `width` is the
+# executor's guess; each collector also returns the width it needed
+# ---------------------------------------------------------------------------
+
+
+def _sorted_val(v: Optional[Val], order) -> Optional[Val]:
+    """A Val's rows in `order`, collection companions included."""
+    if v is None:
+        return None
+    take = lambda x: None if x is None else x[order]  # noqa: E731
+    keys = None
+    if v.keys is not None:
+        keys = Val(v.keys.data[order], None, v.keys.type, v.keys.dict_id)
+    return Val(v.data[order], take(v.valid), v.type, v.dict_id, lengths=take(v.lengths),
+               elem_valid=take(v.elem_valid), keys=keys)
+
+
+def _run_bounds(gid_s, num_groups: int):
+    """Per-group [start, count) of the contiguous runs in sorted order."""
+    grange = torch.arange(num_groups, dtype=gid_s.dtype, device=gid_s.device)
+    start = torch.searchsorted(gid_s, grange, side="left")
+    end = torch.searchsorted(gid_s, grange, side="right")
+    return start, end - start
+
+
+def _window(start, counts, width: int, cap: int):
+    """(groups, width) row positions of each run's first `width` rows and
+    the mask of those inside the run."""
+    j = torch.arange(width, device=start.device)
+    pos = torch.clamp(start[:, None] + j[None, :], 0, max(cap - 1, 0))
+    inb = j[None, :] < torch.clamp(counts, max=width)[:, None]
+    return pos, inb
+
+
+def collect_array_agg(v: Val, live_s, gid_s, num_groups: int, width: int):
+    """array_agg: each group's run, in row order, as one padded row.
+    Returns (block, needed width)."""
+    start, counts = _run_bounds(gid_s, num_groups)
+    pos, inb = _window(start, counts, width, gid_s.shape[0])
+    ev = inb if v.valid is None else (inb & v.valid[pos])
+    blk = Block(v.data[pos], T.ArrayType(v.type), None, v.dict_id,
+                lengths=torch.clamp(counts, max=width).to(torch.int32), elem_valid=ev)
+    return blk, counts.max()
+
+
+def _pair_runs(gid_s, key_norm, contributes, num_groups: int):
+    """Sort rows by (group, key hash) and find the distinct (group, key)
+    runs: (perm, pair group id, pair first position, pair row count), pair
+    arrays of row capacity (unused pairs carry group id num_groups)."""
+    cap = gid_s.shape[0]
+    gidc = torch.where(contributes, gid_s, num_groups)
+    o1 = torch.argsort(unsigned_order_key(key_norm), stable=True)
+    perm = o1[torch.argsort(gidc[o1], stable=True)]
+    g2 = gidc[perm]
+    k2 = key_norm[perm]
+    boundary = torch.ones(cap, dtype=torch.bool, device=gid_s.device)
+    if cap > 1:
+        boundary[1:] = (g2[1:] != g2[:-1]) | (k2[1:] != k2[:-1])
+    pair_id = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    ar = torch.arange(cap, device=gid_s.device)
+    first_pos = torch.full((cap,), cap, dtype=torch.int64, device=gid_s.device)
+    first_pos = first_pos.scatter_reduce_(0, pair_id, ar, "amin", include_self=True)
+    pair_count = torch.zeros(cap, dtype=torch.int64, device=gid_s.device)
+    pair_count.index_add_(0, pair_id, torch.ones_like(pair_id))
+    pair_gid = torch.full((cap,), num_groups, dtype=torch.int64, device=gid_s.device)
+    pair_gid = pair_gid.scatter(0, pair_id, g2.to(torch.int64))
+    return perm, pair_gid, torch.clamp(first_pos, max=max(cap - 1, 0)), pair_count
+
+
+def _pair_windows(kv: Val, live_s, gid_s, num_groups: int, width: int):
+    """Distinct keys per group: (perm, first_row per pair, pair windows
+    per group (ppos, inb), per-group pair counts, pair row counts)."""
+    cap = gid_s.shape[0]
+    contributes = live_s if kv.valid is None else (live_s & kv.valid)
+    perm, pair_gid, first_pos, pair_count = _pair_runs(gid_s, hash_rows([kv]), contributes,
+                                                       num_groups)
+    # per-group range over the pair axis (pairs are sorted by group)
+    pstart, pcounts = _run_bounds(pair_gid, num_groups)
+    ppos, inb = _window(pstart, pcounts, width, cap)
+    return perm, perm[first_pos], ppos, inb, pcounts, pair_count, first_pos
+
+
+def collect_map_agg(spec, kv: Val, vv: Optional[Val], live_s, gid_s, num_groups: int,
+                    width: int):
+    """histogram / map_agg over sorted rows: the distinct keys of a group by
+    a second (group, key) sort, in key-hash order; the values are the
+    counts (histogram) or the value of a key's first row (map_agg).
+    Returns (block, needed width)."""
+    perm, first_row, ppos, inb, pcounts, pair_count, _ = _pair_windows(
+        kv, live_s, gid_s, num_groups, width)
+    lens = torch.clamp(pcounts, max=width).to(torch.int32)
+    rows = first_row[ppos]
+    kblk = Block(kv.data[rows], T.ArrayType(kv.type), None, kv.dict_id, lengths=lens,
+                 elem_valid=inb)
+    if spec.func == "histogram":
+        vals, vtype, vdict, ev = pair_count[ppos], T.BIGINT, None, inb
+    else:
+        vals, vtype, vdict = vv.data[rows], vv.type, vv.dict_id
+        ev = inb if vv.valid is None else (inb & vv.valid[rows])
+    blk = Block(vals, T.MapType(kv.type, vtype), None, vdict, lengths=lens, elem_valid=ev,
+                key_block=kblk)
+    return blk, pcounts.max()
+
+
+def collect_map_union(spec, mv: Val, live_s, gid_s, num_groups: int, width: int):
+    """map_union over sorted rows: each row's map entries become (key,
+    value) pseudo-rows for the map_agg machinery — the merged map keeps the
+    first value seen per key (the reference keeps an arbitrary one)."""
+    cap, w = mv.data.shape[0], mv.data.shape[1]
+    lens = mv.lengths if mv.lengths is not None else torch.full(
+        (cap,), w, dtype=torch.int32, device=mv.device)
+    inb = torch.arange(w, device=mv.device)[None, :] < lens[:, None]
+    live_x = live_s.repeat_interleave(w) & inb.reshape(-1)
+    if mv.valid is not None:
+        live_x = live_x & mv.valid.repeat_interleave(w)
+    kv = Val(mv.keys.data.reshape(-1), None, mv.type.key, mv.keys.dict_id)
+    ev = None if mv.elem_valid is None else mv.elem_valid.reshape(-1)
+    vv = Val(mv.data.reshape(-1), ev, mv.type.value, mv.dict_id)
+    return collect_map_agg(AggSpec("map_agg", None, spec.name, spec.output_type), kv, vv,
+                           live_x, gid_s.repeat_interleave(w), num_groups, width)
+
+
+def collect_multimap_agg(spec, kv: Val, vv: Val, live_s, gid_s, num_groups: int, width: int):
+    """multimap_agg(k, v): map k -> ARRAY of every v seen with k (reference
+    MultimapAggregationFunction). The values ride a 3-D (group, key,
+    occurrence) block; the rows of a (group, key) pair are contiguous in
+    the pair-sorted order, in row order."""
+    cap = gid_s.shape[0]
+    perm, first_row, ppos, inb, pcounts, pair_count, first_pos = _pair_windows(
+        kv, live_s, gid_s, num_groups, width)
+    lens = torch.clamp(pcounts, max=width).to(torch.int32)
+    kblk = Block(kv.data[first_row[ppos]], T.ArrayType(kv.type), None, kv.dict_id,
+                 lengths=lens, elem_valid=inb)
+    e = torch.arange(width, device=gid_s.device)
+    vpos = torch.clamp(first_pos[ppos][:, :, None] + e[None, None, :], 0, max(cap - 1, 0))
+    vcnt = pair_count[ppos]
+    rows3 = perm[vpos]
+    ev3 = inb[:, :, None] & (e[None, None, :] < torch.clamp(vcnt, max=width)[:, :, None])
+    if vv.valid is not None:
+        ev3 = ev3 & vv.valid[rows3]
+    blk = Block(vv.data[rows3], spec.output_type, None, vv.dict_id, lengths=lens,
+                elem_valid=ev3, key_block=kblk)
+    # only live windows count toward the retry width: clamped gathers past
+    # a group's pairs read other pairs' counts
+    return blk, torch.maximum(pcounts.max(), torch.where(inb, vcnt, 0).max())
+
+
+def numeric_histogram_agg(spec, v: Val, contributes, gid, num_groups: int) -> Block:
+    """numeric_histogram(b, x): an equal-width histogram over each group's
+    [min, max] — bucket key = mean of its members, value = member count.
+    The reference's NumericHistogramAggregation adapts its buckets while
+    streaming; this is the JAX package's fixed-shape equivalent (same bucket
+    count contract, deterministic boundaries)."""
+    from ..expr.ir import Literal
+
+    b = spec.input2
+    buckets = int(b.value if isinstance(b, Literal) else b)
+    x = v.data.to(torch.float64)
+    if isinstance(v.type, T.DecimalType) and not v.type.is_long:
+        x = x / (10 ** v.type.scale)
+    g = gid.to(torch.int64)
+    mn = torch.full((num_groups,), float("inf"), dtype=torch.float64, device=x.device)
+    mn = mn.scatter_reduce_(0, g, torch.where(contributes, x, float("inf")), "amin",
+                            include_self=True)
+    mx = torch.full((num_groups,), float("-inf"), dtype=torch.float64, device=x.device)
+    mx = mx.scatter_reduce_(0, g, torch.where(contributes, x, float("-inf")), "amax",
+                            include_self=True)
+    w = torch.clamp((mx - mn) / buckets, min=1e-300)
+    bi = torch.clamp(torch.floor((x - mn[g]) / w[g]), 0, buckets - 1).to(torch.int64)
+    bi = torch.where(contributes, bi, 0)  # dead rows' NaN/inf bins stay in range
+    flat = g * buckets + bi
+    cnt = torch.zeros(num_groups * buckets, dtype=torch.float64, device=x.device)
+    cnt = cnt.index_add_(0, flat, contributes.to(torch.float64)).reshape(num_groups, buckets)
+    sx = torch.zeros(num_groups * buckets, dtype=torch.float64, device=x.device)
+    sx = sx.index_add_(0, flat, torch.where(contributes, x, 0.0)).reshape(num_groups, buckets)
+    centers = sx / torch.clamp(cnt, min=1.0)
+    # non-empty buckets to the front (empty buckets are absent from the map)
+    occupied = cnt > 0
+    order = lane_compaction(occupied)
+    centers = torch.gather(centers, 1, order)
+    weights = torch.gather(cnt, 1, order)
+    lens = occupied.sum(dim=1, dtype=torch.int32)
+    inb = torch.arange(buckets, device=x.device)[None, :] < lens[:, None]
+    kblk = Block(centers, T.ArrayType(T.DOUBLE), None, None, lengths=lens, elem_valid=inb)
+    return Block(weights, T.MapType(T.DOUBLE, T.DOUBLE), None, None, lengths=lens,
+                 elem_valid=inb, key_block=kblk)
+
+
+def collection_block(spec: AggSpec, v: Val, bk: Optional[Val], live_s, gid_s,
+                     num_groups: int, width: int):
+    """One collection aggregate over rows sorted by group id (`v`, `bk` in
+    that order): (block of num_groups rows, needed width)."""
+    if spec.func == "array_agg":
+        return collect_array_agg(v, live_s, gid_s, num_groups, width)
+    if spec.func in ("map_agg", "histogram"):
+        return collect_map_agg(spec, v, bk, live_s, gid_s, num_groups, width)
+    if spec.func == "map_union":
+        return collect_map_union(spec, v, live_s, gid_s, num_groups, width)
+    if spec.func == "multimap_agg":
+        return collect_multimap_agg(spec, v, bk, live_s, gid_s, num_groups, width)
+    contributes = live_s if v.valid is None else (live_s & v.valid)
+    blk = numeric_histogram_agg(spec, v, contributes, gid_s, num_groups)
+    return blk, torch.zeros((), dtype=torch.int64, device=gid_s.device)
 
 
 # ---------------------------------------------------------------------------
@@ -646,7 +893,10 @@ def grouped_aggregate_sorted(
     """General grouped aggregation via hash-sort + run detection.
 
     max_groups is the static output capacity; the returned count may exceed
-    it, and the caller retries with a larger capacity (executor)."""
+    it, and the caller retries with a larger capacity (executor). With a
+    collection aggregate the page gains a `$collect_need` column whose first
+    row is the widest collection any group needed: the caller retries with
+    max_elems at least that wide and drops the column."""
     _require_ported(aggs)
     dev = page.device
     cap = page.capacity
@@ -656,7 +906,9 @@ def grouped_aggregate_sorted(
     h = unsigned_order_key(hash_rows(keys))
     # dead rows sort to the end: the uint64 max sentinel
     h = torch.where(live, h, torch.iinfo(torch.int64).max)
-    order = torch.argsort(h)
+    # a collection's element order is the rows' order within their group,
+    # which only a stable sort keeps
+    order = torch.argsort(h, stable=any(a.func in COLLECTION_AGGS for a in aggs))
 
     live_s = live[order]
     keys_s = [
@@ -695,10 +947,19 @@ def grouped_aggregate_sorted(
         names.append(name)
 
     by_keys = _eval_by_keys(page, aggs)
+    collect_need = None
     for spec, v, bk in zip(aggs, ins, by_keys):
+        if spec.func in COLLECTION_AGGS:
+            blk, need = collection_block(spec, _sorted_val(v, order), _sorted_val(bk, order),
+                                         live_s, gid_s, max_groups + 1, max_elems)
+            blocks.append(blk.take_rows(slice(0, max_groups)))
+            names.append(spec.name)
+            collect_need = need if collect_need is None else torch.maximum(collect_need, need)
+            continue
         if spec.func in SKETCH_FUNCS:
             blk = sketch_block(spec, v.data[order], None if v.valid is None else v.valid[order],
-                               live_s, gid_s, max_groups + 1)
+                               live_s, gid_s, max_groups + 1, _sorted_val(v, order),
+                               _sorted_val(bk, order))
             blocks.append(blk.take_rows(slice(0, max_groups)))
             names.append(spec.name)
             continue
@@ -738,7 +999,18 @@ def grouped_aggregate_sorted(
         did = None if v is None else v.dict_id
         blocks.append(_finalize(spec, raw, has, in_t, did))
         names.append(spec.name)
+    _append_need(blocks, names, collect_need, max_groups, dev)
     return Page.from_blocks(blocks, names, count=num_live_groups, device=dev)
+
+
+def _append_need(blocks, names, collect_need, rows: int, dev) -> None:
+    """The `$collect_need` column: the needed collection width in row 0."""
+    if collect_need is None:
+        return
+    need_col = torch.zeros(max(rows, 1), dtype=torch.int32, device=dev)
+    need_col[0] = collect_need.to(torch.int32)
+    blocks.append(Block(need_col, T.INTEGER, None))
+    names.append("$collect_need")
 
 
 # ---------------------------------------------------------------------------
@@ -785,9 +1057,11 @@ def apply_avg_post(page: Page, aggs: Sequence[AggSpec], post: Sequence[AvgPost])
     return Page(tuple(blocks), tuple(names), page.count)
 
 
-def global_aggregate(page: Page, aggs: Sequence[AggSpec], pre_mask=None) -> Page:
+def global_aggregate(page: Page, aggs: Sequence[AggSpec], pre_mask=None,
+                     max_elems: int = 128) -> Page:
     """Aggregation with no GROUP BY — one output row (reference
-    AggregationOperator)."""
+    AggregationOperator). Collection aggregates are max_elems wide and add
+    the `$collect_need` column, as in grouped_aggregate_sorted."""
     _require_ported(aggs)
     dev = page.device
     live = _masked_live(page, pre_mask)
@@ -795,10 +1069,29 @@ def global_aggregate(page: Page, aggs: Sequence[AggSpec], pre_mask=None) -> Page
     by_keys = _eval_by_keys(page, aggs)
     blocks, names = [], []
     gid = torch.zeros(page.capacity, dtype=torch.int64, device=dev)
+    order0 = gid0 = collect_need = None
     for spec, v, bk in zip(aggs, ins, by_keys):
-        if spec.func in SKETCH_FUNCS:
+        if spec.func in SKETCH_FUNCS and not spec.func.startswith("linreg"):
             # dead rows go to a second group, dropped
             blk = sketch_block(spec, v.data, v.valid, live, (~live).to(torch.int64), 2)
+            blocks.append(blk.take_rows(slice(0, 1)))
+            names.append(spec.name)
+            continue
+        if spec.func in COLLECTION_AGGS or spec.func in SKETCH_FUNCS:
+            # the collectors and the regression accumulators read rows
+            # sorted by group
+            if order0 is None:
+                # live rows first, in row order; dead rows form a second
+                # group, dropped
+                order0 = torch.argsort((~live).to(torch.uint8), stable=True)
+                gid0 = (~live[order0]).to(torch.int64)
+            v_s, bk_s, live_s = _sorted_val(v, order0), _sorted_val(bk, order0), live[order0]
+            if spec.func in COLLECTION_AGGS:
+                blk, need = collection_block(spec, v_s, bk_s, live_s, gid0, 2, max_elems)
+                collect_need = need if collect_need is None else torch.maximum(collect_need,
+                                                                                need)
+            else:
+                blk = sketch_block(spec, v_s.data, v_s.valid, live_s, gid0, 2, v_s, bk_s)
             blocks.append(blk.take_rows(slice(0, 1)))
             names.append(spec.name)
             continue
@@ -818,4 +1111,5 @@ def global_aggregate(page: Page, aggs: Sequence[AggSpec], pre_mask=None) -> Page
         did = None if v is None else v.dict_id
         blocks.append(_finalize(spec, raw, has, in_t, did))
         names.append(spec.name)
+    _append_need(blocks, names, collect_need, 1, dev)
     return Page.from_blocks(blocks, names, count=1, device=dev)

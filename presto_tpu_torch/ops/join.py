@@ -24,7 +24,7 @@ import torch
 
 from ..expr.compiler import evaluate
 from ..expr.functions import Val
-from ..page import Block, Page
+from ..page import Page
 from .filter import compact
 from .hashing import _srl, hash_rows, hash_rows_values, unsigned_order_key, value_hashable
 from .join_kernel import (
@@ -159,7 +159,7 @@ def _join_n1_sorted(probe: Page, bs: BuildSide, probe_key_exprs, build_names,
     for bname, oname in zip(build_names, out_build_names):
         b = bs.page.block(bname)
         valid = matched if b.valid is None else (matched & b.valid[build_row])
-        blocks.append(Block(b.data[build_row], b.type, valid, b.dict_id))
+        blocks.append(b.gather(build_row, valid))
         names.append(oname)
     out = Page(tuple(blocks), tuple(names), probe.count)
     if kind == "inner":
@@ -231,13 +231,12 @@ def _join_expand_sorted(probe: Page, bs: BuildSide, probe_key_exprs, probe_out,
     blocks, names = [], []
     for name in probe_out:
         b = probe.block(name)
-        blocks.append(Block(b.data[src], b.type, None if b.valid is None else b.valid[src],
-                            b.dict_id))
+        blocks.append(b.take_rows(src))
         names.append(name)
     for bname, oname in build_out:
         b = bs.page.block(bname)
         valid = build_valid_base if b.valid is None else (build_valid_base & b.valid[build_row])
-        blocks.append(Block(b.data[build_row], b.type, valid, b.dict_id))
+        blocks.append(b.gather(build_row, valid))
         names.append(oname)
     out = Page.from_blocks(blocks, names, count=out_capacity, device=dev)
     overflow = torch.clamp(total - out_capacity, min=0)

@@ -687,7 +687,7 @@ def _emit_gather(b: Block, idx: torch.Tensor, capacity: int,
             vv = vv & extra_valid
         v = torch.zeros(capacity, dtype=torch.bool, device=idx.device)
         v[:n] = vv
-    return Block(b.data[full], b.type, v, b.dict_id)
+    return b.gather(full, v)
 
 
 def _count(n: int, device) -> torch.Tensor:
@@ -737,7 +737,7 @@ def table_join_n1(probe: Page, jt: JoinTable, probe_key_exprs, build_names: Sequ
         for bname, oname in zip(build_names, out_build_names):
             b = jt.page.block(bname)
             v = matched if b.valid is None else (matched & b.valid[srow])
-            blocks.append(Block(b.data[srow], b.type, v, b.dict_id))
+            blocks.append(b.gather(srow, v))
             names.append(oname)
         return Page(tuple(blocks), tuple(names), probe.count)
     raise ValueError(f"unknown join kind {kind!r}")

@@ -19,7 +19,7 @@ import torch
 
 from .. import types as T
 from ..expr.compiler import evaluate
-from ..page import Page
+from ..page import Block, Page
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,8 +157,56 @@ def distinct_page(page: Page, max_groups: int) -> Page:
     from ..expr.ir import ColumnRef
     from .aggregate import grouped_aggregate_sorted
 
+    if any(b.lengths is not None or b.key_block is not None for b in page.blocks):
+        return _distinct_collections(page, max_groups)
     exprs = [ColumnRef(n, b.type) for n, b in zip(page.names, page.blocks)]
     return grouped_aggregate_sorted(page, exprs, page.names, (), max_groups)
+
+
+def _collection_key_blocks(b: Block):
+    """Key columns that are equal exactly when two collection values are:
+    the length (-1 for a NULL value), the elements and their null flags
+    (zero past the length), and a map's key lanes."""
+    n, w = b.capacity, b.data.shape[1]
+    lens = b.lengths if b.lengths is not None else torch.full(
+        (n,), w, dtype=torch.int32, device=b.device)
+    valid = b.valid_mask()
+    inb = (torch.arange(w, device=b.device)[None, :] < lens[:, None]) & valid[:, None]
+    live = inb.reshape(inb.shape + (1,) * (b.data.ndim - 2))
+    if b.elem_valid is not None:
+        live = live & b.elem_valid
+    live = live.expand(b.data.shape)
+    out = [Block(torch.where(valid, lens, -1).to(torch.int64), T.BIGINT),
+           Block(torch.where(live, b.data, torch.zeros_like(b.data)).reshape(n, -1), T.BIGINT),
+           Block(live.reshape(n, -1).to(torch.int8), T.BIGINT)]
+    if b.key_block is not None:
+        kd = b.key_block.data
+        out.append(Block(torch.where(inb, kd, torch.zeros_like(kd)), T.BIGINT))
+    return out
+
+
+def _distinct_collections(page: Page, max_groups: int) -> Page:
+    """DISTINCT over pages with collection columns: group by the key
+    columns of every collection (plus the plain columns), keep each group's
+    first row, and gather every column there, companions included."""
+    from ..expr.ir import ColumnRef
+    from .aggregate import AggSpec, grouped_aggregate_sorted
+
+    blocks, names = [], []
+    for i, b in enumerate(page.blocks):
+        parts = _collection_key_blocks(b) if (
+            b.lengths is not None or b.key_block is not None) else [b]
+        for j, p in enumerate(parts):
+            blocks.append(p)
+            names.append(f"$k{i}_{j}")
+    keys = [ColumnRef(n, b.type) for n, b in zip(names, blocks)]
+    blocks.append(Block(torch.arange(page.capacity, device=page.device), T.BIGINT))
+    names.append("$row")
+    keyed = Page(tuple(blocks), tuple(names), page.count)
+    first = AggSpec("min", ColumnRef("$row", T.BIGINT), "$first", T.BIGINT)
+    out = grouped_aggregate_sorted(keyed, keys, names[:-1], (first,), max_groups)
+    rows = torch.clamp(out.block("$first").data, 0, max(page.capacity - 1, 0))
+    return Page(tuple(b.take_rows(rows) for b in page.blocks), page.names, out.count)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ varchar column, and add all-NULL columns.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
@@ -35,8 +36,51 @@ def unify_block_dictionaries(blocks):
         if len(d):
             mapping = torch.from_numpy(np.array([index[s] for s in d], np.int32)).to(b.device)
             data = mapping[b.data.to(torch.int64)]
-        out.append(Block(data, b.type, b.valid, did))
+        out.append(dataclasses.replace(b, data=data, dict_id=did))
     return out, did
+
+
+def concat_blocks(col_blocks) -> Block:
+    """One column of several inputs stacked row-wise: one merged dictionary,
+    the first input's dtype; collection columns padded to the widest, their
+    lengths, element masks and map keys stacked alike."""
+    col_blocks, dict_id = unify_block_dictionaries(list(col_blocks))
+    first = col_blocks[0]
+    dtype = first.data.dtype
+    valid = None
+    if any(b.valid is not None for b in col_blocks):
+        valid = torch.cat([b.valid_mask() for b in col_blocks])
+    if not any(b.lengths is not None or b.key_block is not None for b in col_blocks):
+        data = torch.cat([b.data.to(dtype) for b in col_blocks])
+        return Block(data, first.type, valid, dict_id)
+    from ..expr.functions import widen_lanes
+
+    width = max(b.data.shape[1] for b in col_blocks)
+    deep = max(b.data.shape[2] if b.data.ndim == 3 else 0 for b in col_blocks)
+
+    def fit(x):
+        x = widen_lanes(x, width)
+        if deep and x.shape[2] < deep:  # multimap values: pad the third axis
+            x = torch.cat([x, torch.zeros(x.shape[:2] + (deep - x.shape[2],), dtype=x.dtype,
+                                          device=x.device)], dim=2)
+        return x
+
+    data = torch.cat([fit(b.data.to(dtype)) for b in col_blocks])
+    lengths = torch.cat([b.lengths if b.lengths is not None else torch.full(
+        (b.capacity,), b.data.shape[1], dtype=torch.int32, device=b.device)
+        for b in col_blocks])
+    elem_valid = None
+    if any(b.elem_valid is not None for b in col_blocks):
+        elem_valid = torch.cat([fit(b.elem_valid if b.elem_valid is not None
+                                    else torch.ones(b.data.shape, dtype=torch.bool,
+                                                    device=b.device))
+                                for b in col_blocks])
+    key_block = None
+    if first.key_block is not None:
+        key_block = concat_blocks([b.key_block for b in col_blocks])
+        key_block.data = widen_lanes(key_block.data, width)
+    return Block(data, first.type, valid, dict_id, lengths=lengths, elem_valid=elem_valid,
+                 key_block=key_block)
 
 
 def concat_pages(pages: Sequence[Page], distinct: bool = False) -> Page:
@@ -47,16 +91,7 @@ def concat_pages(pages: Sequence[Page], distinct: bool = False) -> Page:
     total_cap = sum(p.capacity for p in pages)
     blocks = []
     for i in range(len(first.names)):
-        col_blocks = [p.blocks[i] for p in pages]
-        if any(b.lengths is not None for b in col_blocks):
-            raise NotImplementedError("not ported yet: concatenating collection columns")
-        col_blocks, dict_id = unify_block_dictionaries(col_blocks)
-        dtype = first.blocks[i].data.dtype
-        data = torch.cat([b.data.to(dtype) for b in col_blocks])
-        valid = None
-        if any(b.valid is not None for b in col_blocks):
-            valid = torch.cat([b.valid_mask() for b in col_blocks])
-        blocks.append(Block(data, first.blocks[i].type, valid, dict_id))
+        blocks.append(concat_blocks([p.blocks[i] for p in pages]))
     occ = torch.cat([p.live_mask() for p in pages])
     out = Page(tuple(blocks), first.names,
                torch.tensor(total_cap, dtype=torch.int32, device=first.device))
@@ -73,8 +108,17 @@ def null_block(typ: T.Type, capacity: int, dict_id: Optional[int] = None,
     """An all-NULL column of `typ` (outer-join null extension)."""
     lanes = getattr(typ, "lanes", 1)
     shape = (capacity,) if lanes == 1 else (capacity, lanes)
-    return Block(torch.zeros(shape, dtype=typ.storage_dtype, device=device), typ,
-                 torch.zeros(capacity, dtype=torch.bool, device=device), dict_id)
+    null = torch.zeros(capacity, dtype=torch.bool, device=device)
+    if isinstance(typ, (T.ArrayType, T.MapType)):
+        # an empty one-lane collection under the NULL mask
+        zeros = torch.zeros(capacity, dtype=torch.int32, device=device)
+        key_block = None
+        if isinstance(typ, T.MapType):
+            key_block = null_block(T.ArrayType(typ.key), capacity, None, device)
+        return Block(torch.zeros((capacity, 1), dtype=typ.storage_dtype, device=device), typ,
+                     null, dict_id, lengths=zeros, key_block=key_block)
+    return Block(torch.zeros(shape, dtype=typ.storage_dtype, device=device), typ, null,
+                 dict_id)
 
 
 def extend_with_nulls(page: Page, names, types, dict_ids, prepend: bool = False) -> Page:

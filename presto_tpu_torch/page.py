@@ -148,6 +148,20 @@ class Block:
             ),
         )
 
+    def gather(self, idx, valid) -> "Block":
+        """Rows `idx` of every row-aligned tensor, with the validity mask
+        `valid` given by the caller (join and compaction outputs)."""
+        return Block(
+            self.data[idx], self.type, valid, self.dict_id,
+            lengths=None if self.lengths is None else self.lengths[idx],
+            elem_valid=(
+                None if self.elem_valid is None else self.elem_valid[idx]
+            ),
+            key_block=(
+                None if self.key_block is None else self.key_block.take_rows(idx)
+            ),
+        )
+
     def to(self, device) -> "Block":
         mv = lambda x: None if x is None else x.to(device)  # noqa: E731
         return Block(
@@ -289,16 +303,16 @@ class Page:
 
     # -- host materialization --
     def to_pylist(self) -> list:
-        """Materialize live rows as python tuples (decoding dictionaries)."""
+        """Materialize live rows as python tuples (decoding dictionaries;
+        collection blocks decode to lists / dicts)."""
         n = int(self.count)
         cols = []
         for b in self.blocks:
             data = to_numpy(b.data[:n])
             valid = None if b.valid is None else to_numpy(b.valid[:n])
-            if b.lengths is not None:
-                raise NotImplementedError(
-                    "not ported yet: collection (array/map) result columns"
-                )
+            if b.lengths is not None or isinstance(b.type, (T.ArrayType, T.MapType)):
+                cols.append(_collection_pylist(b, data, valid, n))
+                continue
             col = []
             for i in range(n):
                 if valid is not None and not valid[i]:
@@ -311,6 +325,55 @@ class Page:
     def to_dict_of_numpy(self) -> dict:
         n = int(self.count)
         return {name: to_numpy(b.data[:n]) for name, b in zip(self.names, self.blocks)}
+
+
+def _collection_pylist(b: Block, data, valid, n: int) -> list:
+    """Decode an ArrayType / MapType block's rows to lists / dicts. A
+    fixed-width array with no per-row lengths (a sketch state: HLL
+    registers, quantile-sketch bins) has every lane live."""
+    if b.lengths is None:
+        lens = np.full(n, data.shape[1] if data.ndim > 1 else 0, np.int64)
+    else:
+        lens = to_numpy(b.lengths[:n])
+    ev = None if b.elem_valid is None else to_numpy(b.elem_valid[:n])
+    if isinstance(b.type, T.MapType):
+        kb = b.key_block
+        kdata = to_numpy(kb.data[:n])
+        kt, vt = b.type.key, b.type.value
+        col = []
+        for i in range(n):
+            if valid is not None and not valid[i]:
+                col.append(None)
+                continue
+            row = {}
+            for j in range(int(lens[i])):
+                k = kt.to_python(kdata[i, j], kb.dictionary)
+                if data.ndim == 3:
+                    # array-valued map (multimap_agg): the values of a key
+                    # ride the third axis, liveness in the 3-D elem_valid
+                    row[k] = [
+                        vt.element.to_python(data[i, j, e], b.dictionary)
+                        for e in range(data.shape[2])
+                        if ev is None or ev[i, j, e]
+                    ]
+                elif ev is not None and not ev[i, j]:
+                    row[k] = None
+                else:
+                    row[k] = vt.to_python(data[i, j], b.dictionary)
+            col.append(row)
+        return col
+    et = b.type.element
+    col = []
+    for i in range(n):
+        if valid is not None and not valid[i]:
+            col.append(None)
+            continue
+        col.append([
+            None if ev is not None and not ev[i, j]
+            else et.to_python(data[i, j], b.dictionary)
+            for j in range(int(lens[i]))
+        ])
+    return col
 
 
 def page_from_numpy(columns, types, dictionaries=None, count=None, device="cuda",
@@ -338,17 +401,44 @@ def page_from_reference(ref_page, device="cuda") -> Page:
     blocks expose data/valid/type/dictionary as array-likes) into this
     package's Page on `device`. Types map through their SQL spelling, the
     dictionaries through their entries (lazy ones stay lazy)."""
-    blocks = []
-    for b in ref_page.blocks:
-        if getattr(b, "lengths", None) is not None:
-            raise NotImplementedError("not ported yet: collection blocks")
-        typ = T.parse_type(b.type.display())
-        valid = None if b.valid is None else np.asarray(b.valid)
-        blocks.append(
-            Block.from_numpy(np.asarray(b.data), typ, valid, b.dictionary, device)
-        )
+    blocks = [block_from_reference(b, device) for b in ref_page.blocks]
     return Page.from_blocks(blocks, ref_page.names, count=int(ref_page.count),
                             device=device)
+
+
+def block_from_reference(b, device="cuda", typ: Optional[T.Type] = None) -> Block:
+    """One presto_tpu Block (or expression value) as this package's Block,
+    collection companions included: per-row lengths, the element null mask,
+    a MAP's key block and the element dictionary."""
+    if typ is None:
+        typ = _type_from_reference(b.type)
+    valid = None if b.valid is None else to_tensor(np.asarray(b.valid), torch.bool, device)
+    lengths = getattr(b, "lengths", None)
+    elem_valid = getattr(b, "elem_valid", None)
+    kb = getattr(b, "key_block", None)
+    key_block = None
+    if kb is not None:
+        key_block = block_from_reference(kb, device, T.ArrayType(typ.key))
+    dictionary = b.dictionary
+    return Block(
+        to_tensor(np.asarray(b.data), typ.storage_dtype, device), typ, valid,
+        None if dictionary is None else intern_dictionary(dictionary),
+        lengths=None if lengths is None else to_tensor(np.asarray(lengths), torch.int32,
+                                                       device),
+        elem_valid=None if elem_valid is None else to_tensor(np.asarray(elem_valid),
+                                                             torch.bool, device),
+        key_block=key_block,
+    )
+
+
+def _type_from_reference(t) -> T.Type:
+    """A presto_tpu type through its SQL spelling; the HLL sketch marker
+    of approx_set's ARRAY(TINYINT) has no spelling, so it carries over."""
+    typ = T.parse_type(t.display())
+    sketch = getattr(t, "sketch", None)
+    if sketch is not None and isinstance(typ, T.ArrayType):
+        typ = T.ArrayType(typ.element, sketch=sketch)
+    return typ
 
 
 def _to_block(value, device) -> Block:

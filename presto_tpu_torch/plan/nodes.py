@@ -87,12 +87,16 @@ class Unnest(PlanNode):
     """Expand array expressions into rows: child columns replicate per
     element, arrays zip by position (reference UnnestNode +
     operator/UnnestOperator.java). One element channel per array, plus an
-    optional 1-based ordinality channel."""
+    optional 1-based ordinality channel. `replicate`, when set by column
+    pruning, names the child columns that are replicated (the others, such
+    as the unnested array itself, are not needed above the node and are not
+    copied once per element)."""
 
     child: PlanNode
     array_exprs: Tuple[RowExpression, ...]
     elem_channels: Tuple[str, ...]
     ordinality_channel: Optional[str] = None
+    replicate: Optional[Tuple[str, ...]] = None
 
     @property
     def children(self):
@@ -100,7 +104,8 @@ class Unnest(PlanNode):
 
     @property
     def fields(self):
-        out = list(self.child.fields)
+        out = [f for f in self.child.fields
+               if self.replicate is None or f[0] in self.replicate]
         for e, ch in zip(self.array_exprs, self.elem_channels):
             out.append((ch, e.type.element))
         if self.ordinality_channel is not None:

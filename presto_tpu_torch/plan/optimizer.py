@@ -45,12 +45,13 @@ def prune_columns(node: N.PlanNode, needed: Set[str]) -> N.PlanNode:
         )
 
     if isinstance(node, N.Unnest):
-        child_have = set(node.child.field_names())
-        child_needed = needed & child_have
+        child_have = node.child.field_names()
+        replicate = tuple(n for n in child_have if n in needed)
+        child_needed = set(replicate)
         for e in node.array_exprs:
             _expr_channels(e, child_needed)
         return dataclasses.replace(
-            node, child=prune_columns(node.child, child_needed)
+            node, child=prune_columns(node.child, child_needed), replicate=replicate
         )
 
     if isinstance(node, N.Filter):

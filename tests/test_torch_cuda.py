@@ -299,3 +299,38 @@ def test_functions_on_card_equal_cpu(cuda, tpcds_sf001, family):
     want = cpu.query(chip_smoke.FUNCTION_SQL[family]).rows()
     assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
     assert len(got) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(chip_smoke.COLLECTION_SQL))
+def test_collections_on_card_equal_cpu(cuda, sessions_sf001, label):
+    """chip_smoke.py's `collections` texts (ARRAY and MAP values, lambdas,
+    UNNEST, regression, geometry, the CDFs) at TPC-H SF 0.01 on the card
+    against the CPU over the same host tables, element order included."""
+    card, cpu = sessions_sf001
+    text = chip_smoke.COLLECTION_SQL[label]
+    got = card.query(text).rows()
+    want = cpu.query(text).rows()
+    assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
+    assert len(got) > 0
+
+
+@pytest.mark.cuda
+def test_array_agg_width_retry_and_order_on_card(cuda):
+    """C1's shape on the card: groups wider than the first 128 elements take
+    the `$collect_need` retry, and each group's elements come in the rows'
+    order (the group sort is stable), as on the CPU."""
+    from presto_tpu_torch.connectors.memory import MemoryCatalog
+    from presto_tpu_torch.page import Page
+
+    rng = np.random.default_rng(29)
+    n = 50_000
+    cols = {"g": rng.integers(0, 40, n).astype(np.int64), "v": np.arange(n, dtype=np.int64)}
+    card = Session(MemoryCatalog({"t": Page.from_dict(cols, device="cuda")}), device="cuda")
+    cpu = Session(MemoryCatalog({"t": Page.from_dict(cols, device="cpu")}), device="cpu")
+    sql = "select g, array_agg(v) from t group by g order by g"
+    got = card.query(sql).rows()
+    assert card.executor.width_retries == [(128, 2048)]
+    assert got == cpu.query(sql).rows()
+    for g, arr in got:
+        assert arr == np.flatnonzero(cols["g"] == g).tolist()
