@@ -64,6 +64,23 @@ sketch states as rows, each cold then twice warm and held against the
 same text through the port on the CPU (computed in the `tpcds` pool),
 C1, C5 and C6 also against numpy; the path must launch kernels 2 and 3,
 and one warm run of each text is traced with the others.
+Then `statements`, the statement layer: statement_steps() (S1 a CTAS of
+Q1's sums; S2 a CTAS of orders joined to customer, 1,500,000 rows; S3 an
+INSERT ... SELECT with a join and a date filter; S4 a DELETE with an IN
+subquery over lineitem; S5 ALTER TABLE add, rename and drop column; S6 a
+transaction rolled back and one committed; S7 PREPARE and EXECUTE, the
+second value rebinding the plan skeleton and the repeated one served by
+the result cache with no launch; S8 SET SESSION pallas_groupby and
+dynamic_filtering with EXPLAIN ANALYZE of Q1 and Q5; S10 SHOW STATS,
+FUNCTIONS and SESSION; S11 GRANT and REVOKE under an access control) twice
+on the card, each time over a new MemoryCatalog of the TPC-H session's
+pages, every statement held against the same sequence through the port
+on the CPU (in the `tpcds` pool) and S2-S4, S6 and S8 against numpy;
+then S9, EXPLAIN ANALYZE of Q5 on the TPC-H session, its per-node rows
+against the CPU's, and traced in the trace process beside plain Q5 (at
+most 2 device-to-host copies more). One `phase3 statements` line a step
+(statements, rows, launches of kernels 1-4, cold and warm ms, the CPU's
+ms) and a summary line; the path must launch kernels 1-3.
 Phase 2 holds each kernel against its plain PyTorch version on the card:
 the group-by kernel at Q1's, Q5's and Q18's (hash-slot) calls, two wider
 G 64 cases and the edges of its regimes and grid (GROUPBY_EDGES), and
@@ -706,7 +723,8 @@ TPCH_TABLES = ("region", "nation", "supplier", "part", "customer", "orders", "li
 
 def make_session(sf=1.0, device="cuda"):
     """Session over TpchCatalog(sf) on `device`, the tables the queries read
-    generated and uploaded (set-up, not query time)."""
+    generated and uploaded (set-up, not query time); without the result
+    cache, so every warm run executes (the `statements` path exercises it)."""
     import torch
 
     from presto_tpu_torch.connectors.tpch import TpchCatalog
@@ -720,7 +738,7 @@ def make_session(sf=1.0, device="cuda"):
         torch.cuda.synchronize()
     print(f"tables {TPCH_TABLES + ('partsupp',)} generated+uploaded in {time.perf_counter() - t0:.3f} s "
           f"(lineitem rows={cat.exact_row_count('lineitem')})", flush=True)
-    return Session(cat, device=device), cat
+    return Session(cat, device=device, result_cache=False), cat
 
 
 def _counts():
@@ -1218,7 +1236,8 @@ TRACE_MIN_WARM_MS = 20.0  # `tpcds` traces every query whose warm wall is above 
 
 def make_tpcds_session(sf=TPCDS_SF, device="cuda"):
     """Session over TpcdsCatalog(sf) on `device`, all 24 tables generated and
-    uploaded (set-up, not query time)."""
+    uploaded (set-up, not query time); without the result cache, as
+    make_session."""
     import torch
 
     from presto_tpu_torch.connectors.tpcds import TABLE_NAMES, TpcdsCatalog
@@ -1234,7 +1253,7 @@ def make_tpcds_session(sf=TPCDS_SF, device="cuda"):
             for n in ("inventory", "store_sales", "catalog_sales", "web_sales")}
     print(f"phase3 tpcds SF {sf} tables generated+uploaded in "
           f"{time.perf_counter() - t0:.3f} s, fact rows {json.dumps(rows)}", flush=True)
-    return Session(cat, device=device), cat
+    return Session(cat, device=device, result_cache=False), cat
 
 
 def tpcds_texts():
@@ -1257,37 +1276,32 @@ def _cpu_worker_init(sf):
 
     global _CPU_SESSION
     torch.set_num_threads(1)
-    _CPU_SESSION = Session(TpcdsCatalog(sf, device="cpu"), device="cpu")
+    _CPU_SESSION = Session(TpcdsCatalog(sf, device="cpu"), device="cpu", result_cache=False)
 
 
 def _cpu_rows(label, text, tpch=False):
-    global _CPU_TPCH
-    sess = _CPU_SESSION
-    if tpch:
-        if _CPU_TPCH is None:
-            from presto_tpu_torch.connectors.tpch import TpchCatalog
-            from presto_tpu_torch.session import Session
-
-            _CPU_TPCH = Session(TpchCatalog(_TPCH_SF, device="cpu"), device="cpu")
-        sess = _CPU_TPCH
+    sess = _cpu_tpch() if tpch else _CPU_SESSION
     t = time.perf_counter()
     rows = sess.query(text).rows()
     return label, rows, (time.perf_counter() - t) * 1e3
 
 
-def start_cpu_rows(texts, sf=TPCDS_SF, workers=CPU_WORKERS, tpch_texts=None):
+def start_cpu_rows(texts, sf=TPCDS_SF, workers=CPU_WORKERS, tpch_texts=None, statements=False):
     """The port's rows of every text on the CPU, computed in `workers` new
     processes (spawned, one torch thread each; each generates the tables
     its queries read, from the same seeds, so they are the card's tables)
     while this process drives the card: the TPC-DS `texts` and, first, the
-    `tpch_texts` over TPC-H at SF 1. Returns (pool, {label: future})."""
+    `statements` path's CPU side (_cpu_statements, under the label
+    "statements") and the `tpch_texts` over TPC-H at SF 1. Returns (pool,
+    {label: future})."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
                                initializer=_cpu_worker_init, initargs=(sf,))
-    futures = {label: pool.submit(_cpu_rows, label, text, True)
-               for label, text in (tpch_texts or {}).items()}
+    futures = {"statements": pool.submit(_cpu_statements)} if statements else {}
+    futures.update({label: pool.submit(_cpu_rows, label, text, True)
+                    for label, text in (tpch_texts or {}).items()})
     order = [q for q in CPU_SLOW_FIRST if q in texts] + [q for q in texts
                                                          if q not in CPU_SLOW_FIRST]
     futures.update({label: pool.submit(_cpu_rows, label, texts[label]) for label in order})
@@ -1676,6 +1690,348 @@ def collections_compare(report, outs, cpu_rows):
         print(f"phase3 collections {label}", json.dumps(report[label]), flush=True)
 
 
+# -- phase 3: the statement layer (`statements`) -----------------------------
+
+# the tables of the `statements` path: a MemoryCatalog over the TPC-H
+# session's pages (statements_catalog), rev and co written into it
+Q1_CTAS = ("create table rev as select l_returnflag, l_linestatus, sum(l_quantity) sum_qty, "
+           "sum(l_extendedprice) sum_base_price, "
+           "sum(l_extendedprice * (1 - l_discount)) sum_disc_price, count(*) count_order "
+           "from lineitem where l_shipdate <= date '1998-09-02' "
+           "group by l_returnflag, l_linestatus")
+CO_COLUMNS = "o_orderkey, o_custkey, o_orderdate, o_totalprice, {}, c_nationkey, c_mktsegment"
+CO_JOIN = " from orders, customer where o_custkey = c_custkey"
+CO_FINGERPRINT = ("select count(*), sum(o_orderkey), sum(o_custkey), sum(o_totalprice), "
+                  "sum(c_nationkey) from co")
+S3_FROM = (1998, 1, 1)  # INSERT's date filter
+S4_QUANTITY = 49  # DELETE's semi-join filter
+S6_DAY = (1995, 6, 17)  # the rolled-back INSERT's day
+S6_BEFORE = (1993, 1, 1)  # the committed DELETE's cutoff
+
+
+def _sql_date(ymd):
+    return "date '%04d-%02d-%02d'" % ymd
+
+
+def statement_steps():
+    """{step: (statement, ...)} of the `statements` path, run in order; a
+    statement is SQL, or (SQL, user) for the access-controlled session of
+    S11. Each co write is followed by CO_FINGERPRINT."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+
+    co = CO_COLUMNS.format("o_orderpriority, c_name")
+    renamed = CO_COLUMNS.format("c_name")  # after S5: cust_name, no o_orderpriority
+    q1, q5 = QUERIES[1], QUERIES[5]
+    return {
+        "S1": (Q1_CTAS, "select * from rev order by l_returnflag, l_linestatus"),
+        "S2": (f"create table co as select {co}{CO_JOIN}", CO_FINGERPRINT),
+        "S3": (f"insert into co select {co}{CO_JOIN} and o_orderdate >= {_sql_date(S3_FROM)}",
+               CO_FINGERPRINT),
+        "S4": ("delete from co where o_orderkey in (select l_orderkey from lineitem "
+               f"where l_quantity >= {S4_QUANTITY})", CO_FINGERPRINT),
+        "S5": ("alter table co add column note varchar",
+               "alter table co rename column c_name to cust_name",
+               "alter table co drop column o_orderpriority", "show columns from co"),
+        "S6": ("start transaction",
+               f"insert into co select {renamed}, 'staged'{CO_JOIN} "
+               f"and o_orderdate = {_sql_date(S6_DAY)}",
+               "select count(*), count(note) from co", "rollback", "select count(*) from co",
+               "start transaction", f"delete from co where o_orderdate < {_sql_date(S6_BEFORE)}",
+               "commit", CO_FINGERPRINT),
+        "S7": ("prepare p from select c_nationkey, count(*), sum(o_totalprice) from co "
+               "where o_custkey < ? group by 1 order by 1",
+               "execute p using 50000", "execute p using 100000", "execute p using 100000",
+               "describe input p", "describe output p"),
+        "S8": ("set session pallas_groupby = false", "explain analyze " + q1, q1,
+               "reset session pallas_groupby", "explain analyze " + q1,
+               "set session dynamic_filtering = false", "explain analyze " + q5, q5,
+               "reset session dynamic_filtering"),
+        "S10": ("show stats for lineitem", "show functions", "show session"),
+        "S11": (("select count(*) from rev", "bob"), ("grant select on rev to bob", "admin"),
+                ("select count(*) from rev", "bob"), ("revoke select on rev from bob", "admin"),
+                ("select count(*) from rev", "bob")),
+    }
+
+
+def statements_catalog(cat, device):
+    """A MemoryCatalog over the TPC-H catalog's pages (no copy) with its
+    declared keys, on `device`."""
+    from presto_tpu_torch.connectors.memory import MemoryCatalog
+
+    names = TPCH_TABLES + ("partsupp",)
+    return MemoryCatalog({n: cat.page(n) for n in names},
+                         unique={n: cat.unique_columns(n) for n in names}, device=device)
+
+
+def analyze_summary(lines):
+    """What EXPLAIN ANALYZE's text holds that does not depend on timing:
+    each node's indented name, rows in and out and strategy (the
+    hash-table join's mode, `pallas` on the card and `host` on the CPU,
+    left out), and whether it has a dynamic-filters line."""
+    import re
+
+    pat = re.compile(r"^(\s*- \S+).*\[[\d,.]+ms, in ([\d,]+) rows, out ([\d,]+) rows(.*)\]$")
+    nodes = []
+    for line in lines:
+        m = pat.match(line)
+        if m:
+            strategy = re.search(r"strategy=([^;\]]+)", m.group(4))
+            note = None if strategy is None else re.sub(r"\((pallas|host)\)", "",
+                                                        strategy.group(1).split(" occ=")[0])
+            nodes.append([m.group(1), int(m.group(2).replace(",", "")),
+                          int(m.group(3).replace(",", "")), note])
+    n_nodes = sum(1 for ln in lines if ln.lstrip().startswith("- "))
+    return {"nodes": nodes, "bracketed": len(nodes) == n_nodes,
+            "dynamic_filters": any(ln.startswith("-- dynamic filters:") for ln in lines)}
+
+
+def acl_session(catalog, device):
+    """A session over `catalog` under a RuleBasedAccessControl granting
+    admin everything and nobody else anything (S11)."""
+    from presto_tpu_torch.security import RuleBasedAccessControl
+    from presto_tpu_torch.session import Session
+
+    return Session(catalog, device=device, user="admin",
+                   access_control=RuleBasedAccessControl([{"user": "admin",
+                                                           "privileges": "all"}]))
+
+
+def run_statements(catalog, device):
+    """Every step of statement_steps() in order over `catalog`: per step
+    its wall ms and launches, and per statement its rows (EXPLAIN ANALYZE:
+    analyze_summary; a denied statement: "denied"), and how many plan- and
+    result-cache hits and kernel launches it made."""
+    from presto_tpu_torch.exec import qcache
+    from presto_tpu_torch.security import AccessDeniedError
+    from presto_tpu_torch.session import Session
+
+    sess, acl = Session(catalog, device=device), acl_session(catalog, device)
+    out = {}
+    for label, stmts in statement_steps().items():
+        t0 = time.perf_counter()
+        recs = []
+        for item in stmts:
+            sql, user = item if isinstance(item, tuple) else (item, None)
+            hits0 = {k: s["hits"] for k, s in qcache.snapshot_all().items()}
+            launches0 = _counts()
+            try:
+                rows = (acl if user else sess).query(sql, user=user).rows()
+            except AccessDeniedError:
+                rows = "denied"
+            if sql.startswith("explain analyze"):
+                rows = analyze_summary([r[0] for r in rows])
+            hits = {k: s["hits"] - hits0[k] for k, s in qcache.snapshot_all().items()}
+            recs.append({"sql": sql, "rows": rows, "plan_hits": hits["plan"],
+                         "result_hits": hits["result"],
+                         "launches": {k: v - launches0[k] for k, v in _counts().items()}})
+        out[label] = {"ms": (time.perf_counter() - t0) * 1e3, "statements": recs}
+    return out
+
+
+def _cpu_tpch():
+    """The pool worker's TPC-H SF 1 session on the CPU, made on first use."""
+    global _CPU_TPCH
+    if _CPU_TPCH is None:
+        from presto_tpu_torch.connectors.tpch import TpchCatalog
+        from presto_tpu_torch.session import Session
+
+        _CPU_TPCH = Session(TpchCatalog(_TPCH_SF, device="cpu"), device="cpu",
+                            result_cache=False)
+    return _CPU_TPCH
+
+
+def _cpu_statements():
+    """The CPU side of `statements` in a pool worker: run_statements over a
+    MemoryCatalog of the worker's TPC-H tables, and EXPLAIN ANALYZE of Q5
+    on its TPC-H session (S9)."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+
+    tpch = _cpu_tpch()
+    t = time.perf_counter()
+    q5 = analyze_summary(tpch.explain_analyze(QUERIES[5]).split("\n"))
+    q5_ms = (time.perf_counter() - t) * 1e3
+    return run_statements(statements_catalog(tpch.catalog, "cpu"), "cpu"), q5, q5_ms
+
+
+def _statement_rows(run, label, i):
+    return run[label]["statements"][i]["rows"]
+
+
+def statement_numpy_checks(run, tables, q1_rows, q5_rows):
+    """S2-S4 and S6 against numpy counts over the host tables, and S8's
+    queries against numpy's Q1 and Q5; the first difference or None."""
+    import numpy as np
+
+    o, li = tables["orders"].columns, tables["lineitem"].columns
+    od = o["o_orderdate"].data
+    n_orders = len(od)  # every order has its customer
+    late = int((od >= _days(*S3_FROM)).sum())
+    big = np.unique(li["l_orderkey"].data[li["l_quantity"].data >= S4_QUANTITY * 100])
+    gone = np.isin(o["o_orderkey"].data, big)
+    kept_dates = np.concatenate([od[~gone], od[(od >= _days(*S3_FROM)) & ~gone]])
+    n4 = len(kept_dates)
+    staged = int((od == _days(*S6_DAY)).sum())
+    dropped = int((kept_dates < _days(*S6_BEFORE)).sum())
+    want = {
+        ("S2", 0): [(n_orders,)], ("S3", 0): [(late,)],
+        ("S4", 0): [(n_orders + late - n4,)],
+        ("S6", 1): [(staged,)], ("S6", 2): [(n4 + staged, staged)], ("S6", 4): [(n4,)],
+        ("S6", 6): [(dropped,)],
+    }
+    counts = {"S2": n_orders, "S3": n_orders + late, "S4": n4, "S6": n4 - dropped}
+    for (label, i), rows in want.items():
+        if _statement_rows(run, label, i) != rows:
+            return f"{label} statement {i}: {_statement_rows(run, label, i)} != numpy {rows}"
+    for label, n in counts.items():
+        got = _statement_rows(run, label, -1)[0][0]
+        if got != n:
+            return f"{label} fingerprint count {got} != numpy {n}"
+    for i, want_rows in ((2, q1_rows), (7, q5_rows)):
+        diff = row_diff(_statement_rows(run, "S8", i), want_rows)
+        if diff is not None:
+            return f"S8 statement {i} against numpy: {diff}"
+    return None
+
+
+def statement_checks(run):
+    """What the path requires of one run on the card; the first failure or
+    None."""
+    def rec(label, i):
+        return run[label]["statements"][i]
+
+    def launched(label, i, k):
+        return rec(label, i)["launches"][k]
+
+    if launched("S1", 0, "groupby_partials") < 1:
+        return "S1's CTAS did not launch the group-by kernel"
+    for label in ("S2", "S4"):
+        for k in ("join_insert", "join_probe"):
+            if launched(label, 0, k) < 1:
+                return f"{label} did not launch {k}"
+    if rec("S7", 2)["plan_hits"] != 1:
+        return f"S7's second EXECUTE made {rec('S7', 2)['plan_hits']} plan-cache hits, not 1"
+    third = rec("S7", 3)
+    if third["result_hits"] != 1 or any(third["launches"].values()):
+        return f"S7's repeated EXECUTE was no result-cache hit: {third}"
+    if rec("S7", 3)["rows"] != rec("S7", 2)["rows"]:
+        return "S7's repeated EXECUTE changed its rows"
+    off, on = rec("S8", 1)["rows"], rec("S8", 4)["rows"]
+    agg = [n for n in off["nodes"] if n[0].strip() == "- Aggregate"]
+    note = agg[0][3] if agg else None
+    k1 = launched("S8", 1, "groupby_partials")
+    if note not in ("hash-slot", "hash-sort") or k1 != (1 if note == "hash-slot" else 0):
+        return f"S8 with pallas_groupby off: Aggregate strategy {note}, {k1} group-by launches"
+    if [n for n in on["nodes"] if n[0].strip() == "- Aggregate"][0][3] != "pallas":
+        return "S8 after RESET: the Aggregate does not note pallas"
+    if rec("S8", 6)["rows"]["dynamic_filters"]:
+        return "S8 with dynamic_filtering off still printed dynamic filters"
+    if not all(rec("S8", i)["rows"]["bracketed"] for i in (1, 4, 6)):
+        return "S8: a plan node of EXPLAIN ANALYZE has no bracket"
+    if [r["rows"] for r in run["S11"]["statements"]][::2] != ["denied", [(4,)], "denied"]:
+        return f"S11: {[r['rows'] for r in run['S11']['statements']]}"
+    return None
+
+
+def _shown(rec):
+    """A statement's result on its step line: the row count a write
+    reports, the rows a query returns, EXPLAIN ANALYZE's plan nodes, or
+    "denied"."""
+    rows = rec["rows"]
+    if isinstance(rows, str):
+        return rows
+    if isinstance(rows, dict):
+        return f"{len(rows['nodes'])} nodes"
+    if rec["sql"].split()[0] in ("create", "insert", "delete"):
+        return f"count {rows[0][0]}"
+    return len(rows)
+
+
+def _same_result(a, b):
+    if isinstance(a, list) and isinstance(b, list):
+        return row_diff(a, b) is None
+    return a == b
+
+
+def statements_path(sess, cat, tables, runs=2):
+    """The statement layer on the card: statement_steps() `runs` times,
+    each over a new MemoryCatalog of the TPC-H session's pages (the first
+    run cold, the next warm), each run held by statement_checks and
+    against numpy (statement_numpy_checks); then EXPLAIN ANALYZE of Q5 on
+    the TPC-H session itself (S9), cold then warm. Returns the report for
+    statements_compare."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+
+    q1_rows, q5_rows = numpy_q1(tables["lineitem"]), numpy_q5(tables)
+    card = []
+    for _ in range(runs):
+        run = run_statements(statements_catalog(cat, "cuda"), "cuda")
+        fault = statement_checks(run) or statement_numpy_checks(run, tables, q1_rows, q5_rows)
+        if fault is not None:
+            raise AssertionError(f"statements on the card: {fault}")
+        card.append(run)
+    walls, q5 = [], None
+    for _ in range(runs):
+        before = _counts()
+        t = time.perf_counter()
+        text = sess.explain_analyze(QUERIES[5])
+        walls.append((time.perf_counter() - t) * 1e3)
+        summary = analyze_summary(text.split("\n"))
+        if q5 is None:
+            q5 = {"summary": summary, "launches": {k: v - before[k] for k, v in _counts().items()}}
+        if not summary["bracketed"] or summary["nodes"] != q5["summary"]["nodes"]:
+            raise AssertionError(f"S9 EXPLAIN ANALYZE of Q5: {summary}")
+    for k in ("groupby_partials", "join_insert", "join_probe"):
+        if q5["launches"][k] < 1:
+            raise AssertionError(f"S9 EXPLAIN ANALYZE of Q5 did not launch {k}")
+    q5.update(cold_ms=walls[0], warm_ms=min(walls[1:]))
+    return {"card": card, "S9": q5}
+
+
+def statements_compare(report, cpu_future, traced):
+    """Every statement of every card run against the CPU's (rows, EXPLAIN
+    ANALYZE summaries with their strategies, denials, and the plan- and
+    result-cache hits each made), S9's per-node rows against the CPU's
+    EXPLAIN ANALYZE of Q5, and S9's traces: EXPLAIN ANALYZE of Q5 may make
+    at most 2 device-to-host copies more than plain Q5. Prints one line a
+    step and a summary line."""
+    cpu, cpu_q5, cpu_q5_ms = cpu_future.result()
+    for run in report["card"]:
+        for label, step in run.items():
+            for got, want in zip(step["statements"], cpu[label]["statements"]):
+                for key in ("rows", "plan_hits", "result_hits"):
+                    if not _same_result(got[key], want[key]):
+                        raise AssertionError(f"statements {label} {got['sql'][:80]!r} {key} on "
+                                             f"the card {got[key]} != CPU {want[key]}")
+    q5 = report["S9"]
+    if q5["summary"] != cpu_q5:
+        raise AssertionError(f"S9 EXPLAIN ANALYZE of Q5 on the card {q5['summary']} != "
+                             f"CPU {cpu_q5}")
+    plain, analyzed = traced[("statements", "Q5")], traced[("statements", "Q5_explain_analyze")]
+    extra = analyzed["host_syncs"] - plain["host_syncs"]
+    if not (plain["complete"] and analyzed["complete"]) or extra > 2:
+        raise AssertionError(f"S9: EXPLAIN ANALYZE of Q5 made {extra} device-to-host copies "
+                             f"more than Q5 (complete windows: {plain['complete']}, "
+                             f"{analyzed['complete']})")
+    cold, warm = report["card"][0], report["card"][-1]
+    for label, step in cold.items():
+        recs = step["statements"]
+        line = {"statements": [r["sql"][:60] for r in recs],
+                "rows": [_shown(r) for r in recs],
+                "launches": {k: sum(r["launches"][k] for r in recs) for k in _counts()},
+                "cold_ms": step["ms"], "warm_ms": warm[label]["ms"], "cpu_ms": cpu[label]["ms"]}
+        print(f"phase3 statements {label}", json.dumps(line), flush=True)
+    print("phase3 statements S9", json.dumps({
+        "statement": "explain analyze Q5 (TpchCatalog SF 1)", "nodes": len(q5["summary"]["nodes"]),
+        "launches": q5["launches"], "cold_ms": q5["cold_ms"], "warm_ms": q5["warm_ms"],
+        "cpu_ms": cpu_q5_ms, "q5_dtoh": plain["host_syncs"],
+        "explain_analyze_dtoh": analyzed["host_syncs"],
+        "idle_share": analyzed["idle_share_of_warm_wall"]}), flush=True)
+    n = sum(len(step["statements"]) for step in cold.values())
+    print(f"phase3 statements summary: {len(cold)} steps and S9, {n} statements a run, "
+          f"{len(report['card'])} runs on the card each held against the CPU and numpy; "
+          f"EXPLAIN ANALYZE of Q5 {extra:+d} device-to-host copies against Q5", flush=True)
+
+
 def run_tpcds_traces(path):
     """The new process of start_traces: profile_one over one warm run of
     each (section, label, SQL, warm ms) item of the job at `path`, on a new
@@ -1684,14 +2040,17 @@ def run_tpcds_traces(path):
     with open(path) as f:
         job = json.load(f)
     sess, _ = make_tpcds_session(job["sf"])
-    tpch = None  # the `collections` texts read TPC-H
+    tpch = None  # the `collections` and `statements` texts read TPC-H
     for section, label, text, warm_ms in job["items"]:
         on = sess
-        if section == "collections":
+        if section in ("collections", "statements"):
             if tpch is None:
                 tpch, _ = make_session(_TPCH_SF)
             on = tpch
-        summary, _ = profile_one(lambda: on.query(text).rows(), warm_ms, tries=1)
+        # the `statements` pair is compared by device-to-host copies, so
+        # an incomplete window is traced again
+        tries = 3 if section == "statements" else 1
+        summary, _ = profile_one(lambda: on.query(text).rows(), warm_ms, tries=tries)
         print(f"phase3 {section} {label} profile", json.dumps(summary), flush=True)
 
 
@@ -1840,7 +2199,8 @@ def benchmark_path(sf=1.0, device="cuda", runs=3):
     _zero_counts()
     report, per = run_pipelines(page, {"q1_local": q1, "q1_local_kernel": q1, "q6_local": q6},
                                 runs)
-    sql_report, per_sql = run_path(Session(dcat, device=device), expect, runs, texts)
+    sql_report, per_sql = run_path(Session(dcat, device=device, result_cache=False), expect,
+                                       runs, texts)
     counts = _counts()
     report.update(sql_report)
     per.update(per_sql)
@@ -2620,7 +2980,7 @@ def main() -> int:
     from presto_tpu_torch.session import Session
 
     t0 = time.perf_counter()
-    cpu_sess = Session(cat.with_device("cpu"), device="cpu")
+    cpu_sess = Session(cat.with_device("cpu"), device="cpu", result_cache=False)
     _zero_counts()
     tpch22 = tpch22_path(sess, cpu_sess)
     path_counts["tpch22"] = _counts()
@@ -2648,13 +3008,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ds_texts = tpcds_texts()
-    pool, cpu_rows = start_cpu_rows(ds_texts, tpch_texts=COLLECTION_SQL)
+    pool, cpu_rows = start_cpu_rows(ds_texts, tpch_texts=COLLECTION_SQL, statements=True)
     try:
         ds_sess, ds_cat = make_tpcds_session()
         _zero_counts()
         tpcds, outs = tpcds_card_runs(ds_sess)
         path_counts["tpcds"] = _counts()
-        ds_cpu = Session(ds_cat.with_device("cpu"), device="cpu")
+        ds_cpu = Session(ds_cat.with_device("cpu"), device="cpu", result_cache=False)
         _zero_counts()
         functions = functions_path(ds_sess, ds_cpu)
         path_counts["functions"] = _counts()
@@ -2671,6 +3031,19 @@ def main() -> int:
         path_counts["collections"] = _counts()
         print(f"phase3 collections card runs {time.perf_counter() - t1:.3f} s", flush=True)
         items += [("collections", c, COLLECTION_SQL[c], r["warm_ms"]) for c, r in coll.items()]
+        # the `statements` path on a MemoryCatalog over the same session's
+        # pages, then EXPLAIN ANALYZE of Q5 on the session; its CPU side
+        # in the same pool
+        from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+
+        t1 = time.perf_counter()
+        _zero_counts()
+        stmts = statements_path(sess, cat, tables)
+        path_counts["statements"] = _counts()
+        print(f"phase3 statements card runs {time.perf_counter() - t1:.3f} s", flush=True)
+        warm = stmts["S9"]["warm_ms"]
+        items += [("statements", "Q5", QUERIES[5], warm),
+                  ("statements", "Q5_explain_analyze", "explain analyze " + QUERIES[5], warm)]
         with tempfile.TemporaryDirectory() as tmp:
             traces = start_traces(items, tmp)
             tpcds_compare(tpcds, outs, cpu_rows)
@@ -2680,6 +3053,7 @@ def main() -> int:
                 if section == "collections":
                     coll[label]["profile"] = summary
             collections_compare(coll, coll_outs, cpu_rows)
+            statements_compare(stmts, cpu_rows["statements"], traced)
     finally:
         pool.shutdown(cancel_futures=True)
     print(f"phase3 tpcds, functions and collections launches {json.dumps(path_counts['tpcds'])} "
@@ -2691,6 +3065,10 @@ def main() -> int:
     for k in ("join_insert", "join_probe"):
         if path_counts["collections"][k] < 1:
             raise AssertionError(f"the collections path did not launch {k}")
+    print(f"phase3 statements launches {json.dumps(path_counts['statements'])}", flush=True)
+    for k in ("groupby_partials", "join_insert", "join_probe"):
+        if path_counts["statements"][k] < 1:
+            raise AssertionError(f"the statements path did not launch {k}")
 
     # phase 2: each kernel against its plain version, at the main paths'
     # shapes and at wider cases

@@ -36,7 +36,8 @@ def run(sf: float, runs: int = 3, prewarm: int = 1, queries=None, device="cuda")
     from ..connectors.tpch_device import DeviceTpchCatalog
     from ..session import Session
 
-    sess = Session(DeviceTpchCatalog(sf, device=device), device=device)
+    # without the result cache: every timed run executes
+    sess = Session(DeviceTpchCatalog(sf, device=device), device=device, result_cache=False)
     li_rows = sess.catalog.exact_row_count("lineitem")
     out = {
         "suite": "northstar_device_sql",

@@ -1,6 +1,5 @@
 """In-memory connector: query device Pages registered at runtime
-(torch package's copy of presto_tpu/connectors/memory.py; CREATE TABLE and
-INSERT are not ported yet).
+(torch package's counterpart of presto_tpu/connectors/memory.py).
 
 Re-designed equivalent of the reference's memory connector
 (presto-memory/src/main/java/com/facebook/presto/plugin/memory/ —
@@ -13,15 +12,18 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 from .. import types as T
 from ..page import Page
-from ..expr.functions import NotPortedError
 from .spi import WritableConnector
 
 
 class MemoryCatalog(WritableConnector):
     """tables: {name: Page}; unique: {table: [key column sets]} lets the
-    planner use n:1 joins (the analog of declared primary keys)."""
+    planner use n:1 joins (the analog of declared primary keys). `device`
+    is where CREATE TABLE builds its empty pages ("cuda" unless the caller
+    passes "cpu"); registered and written pages stay where they are."""
 
     name = "memory"
 
@@ -29,9 +31,11 @@ class MemoryCatalog(WritableConnector):
         self,
         tables: Dict[str, Page],
         unique: Optional[Dict[str, List[Tuple[str, ...]]]] = None,
+        device="cuda",
     ):
         self.tables = dict(tables)
         self.unique = unique or {}
+        self.device = torch.device(device)
         # per-table monotonic snapshot versions (plan/result cache
         # invalidation, exec/qcache.py): bumped BY NAME on every write so
         # a re-created table never resumes an old version sequence
@@ -39,6 +43,9 @@ class MemoryCatalog(WritableConnector):
 
     def _bump(self, table: str) -> None:
         self._versions[table] = self._versions.get(table, 0) + 1
+        # a write changes the rows the cached stats were sampled from (the
+        # JAX package keeps serving the old ones: ROADMAP queue 3)
+        self.forget_column_stats(table)
 
     def table_version(self, table: str) -> int:
         if table not in self.tables:
@@ -72,7 +79,10 @@ class MemoryCatalog(WritableConnector):
     # -- writes (reference MemoryPagesStore.add / MemoryMetadata DDL) --
 
     def create_table(self, table: str, schema: Dict[str, T.Type]) -> None:
-        raise NotPortedError("not ported yet: CREATE TABLE on the memory connector")
+        from ..ops.union import empty_page
+
+        self.tables[table] = empty_page(schema, self.device)
+        self._bump(table)
 
     def create_table_from_page(self, table: str, page: Page) -> None:
         self.tables[table] = page
@@ -84,7 +94,18 @@ class MemoryCatalog(WritableConnector):
         self._bump(table)
 
     def append(self, table: str, page: Page) -> None:
-        raise NotPortedError("not ported yet: INSERT on the memory connector")
+        """Rows appended after the table's live rows; varchar columns end
+        on one merged dictionary (concat_pages)."""
+        from ..ops.union import concat_pages
+
+        base = self.tables[table]
+        # one host read of both counts
+        n_base, n_new = torch.stack([base.count, page.count.to(base.device)]).tolist()
+        if n_base == 0:
+            self.tables[table] = page.to(base.device)
+        elif n_new > 0:
+            self.tables[table] = concat_pages([base, page.to(base.device)])
+        self._bump(table)
 
     def replace(self, table: str, page: Page) -> None:
         self.tables[table] = page

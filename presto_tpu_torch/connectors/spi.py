@@ -93,6 +93,13 @@ class Connector(Catalog):
             cache[key] = self._compute_column_stats(table, column)
         return cache[key]
 
+    def forget_column_stats(self, table: str) -> None:
+        """Drop `table`'s cached column stats (a write changed its rows)."""
+        cache = getattr(self, "_column_stats_cache", None)
+        if cache:
+            for key in [k for k in cache if k[0] == table]:
+                del cache[key]
+
     def _compute_column_stats(self, table: str, column: str):
         import numpy as np
 

@@ -14,6 +14,13 @@ and strategy choices match. PyTorch runs eagerly, so the JAX package's jit
 kernel cache is a plain call here, and no breaker stands around a kernel:
 a kernel fault fails the query.
 
+EXPLAIN ANALYZE (exec/stats.py): with a `collector`, every node records
+its host wall time, rows in and out (0-d count tensors, read once at the
+end), output bytes and retries, and the strategy notes keep the JAX
+package's names (`pallas` is the dense group-by strategy, whose kernel is
+csrc/groupby_partials.cu; `hash-slot`, `hash-sort`, `multiway-fused`,
+`keypack=...`, `hash-table(...)`, `df[...]`, `dyn_pruned=...`).
+
 Nodes ported: TableScan, Sample, Filter, Project, Aggregate, Distinct,
 Window, Sort, TopN, Limit, Union, Unnest, Output, SingleRow, Join,
 SemiJoin, ScalarApply and the Exchange/AggFinalize pass-throughs. Any other
@@ -22,6 +29,8 @@ node raises ExecutionError("not ported yet: <node>").
 
 from __future__ import annotations
 
+import re
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -33,11 +42,13 @@ from ..expr.ir import Call, ColumnRef
 from ..ops.aggregate import global_aggregate, grouped_aggregate_sorted
 from ..ops.filter import compact, filter_page
 from ..ops.join import build, join_expand, join_n1, semi_match_mask
-from ..ops.join_kernel import build_table, table_multiway_n1
+from ..ops.join_kernel import JoinTable, build_table, table_multiway_n1
 from ..ops.sort import distinct_page, limit_page, sort_page, top_n
 from ..page import Block, Page, round_capacity
 from ..plan import nodes as N
 from .dynfilter import DynamicFilterContext, derive_filter
+from .qcache import LRUCache
+from .stats import page_device_bytes
 
 # dynamic filters are derived only when the CBO expects the join to keep
 # under this fraction of its probe rows
@@ -49,13 +60,24 @@ class ExecutionError(RuntimeError):
 
 
 class Executor:
-    def __init__(self, catalog, device="cuda"):
+    def __init__(self, catalog, device="cuda", collector=None, pallas_groupby=True):
         self.catalog = catalog
         self.device = torch.device(device)
+        # EXPLAIN ANALYZE support (exec/stats.py); None = no accounting
+        self.collector = collector
+        # the dense group-by kernel strategy (the `pallas_groupby` session
+        # property): on by default on every device, its wrapper running
+        # the plain version for CPU tensors; the hash-slot strategy is not
+        # gated by it
+        self.pallas_groupby = pallas_groupby
+        # the `dynamic_filtering` session property: off derives no filters
+        self.dynamic_filtering = True
         self._retries = 0  # adaptive-capacity re-runs
         # (width tried, width retried with) of each collection-width retry
         self.width_retries = []
-        self._est_cache: Dict = {}
+        # CBO row estimates per plan node, LRU-bounded: a long-lived
+        # session executes unboundedly many plans
+        self._est_cache = LRUCache(max_entries=4096, name="row_est")
         self._ps_cache: Dict = {}
         # runtime dynamic filters: per-query build-side summaries consumed
         # by probe-side scans and filters
@@ -89,8 +111,28 @@ class Executor:
     def _run(self, node: N.PlanNode) -> Page:
         inner = self._star_spec(node)
         if inner is not None:
-            return self._run_star_join(node, inner)
-        return self.exec_node(node, *self._run_children(node))
+            if self.collector is None:
+                return self._run_star_join(node, inner)
+            t0 = time.perf_counter()
+            out = self._run_star_join(node, inner)
+            # fused execution: the outer node carries the pair's stats
+            # (child scans and builds record their own through _run)
+            self.collector.record(node, time.perf_counter() - t0, [], out.count,
+                                  page_device_bytes(out))
+            return out
+        pages = self._run_children(node)
+        if self.collector is None:
+            return self.exec_node(node, *pages)
+        # row counts stay 0-d device tensors: the collector reads them all
+        # at once at the end, so wall is host time (dispatch and the
+        # node's own host reads)
+        retries_before = self._retries
+        t0 = time.perf_counter()
+        out = self.exec_node(node, *pages)
+        self.collector.record(node, time.perf_counter() - t0, [p.count for p in pages],
+                              out.count, page_device_bytes(out),
+                              self._retries - retries_before)
+        return out
 
     def exec_node(self, node: N.PlanNode, *pages: Page) -> Page:
         """Apply one plan node to already-materialized input pages."""
@@ -119,17 +161,47 @@ class Executor:
 
     def _est_rows(self, node):
         """CBO row estimate for a node's output (cached per plan node)."""
-        key = node
-        if key in self._est_cache:
-            return self._est_cache[key]
+        hit = self._est_cache.get(node, count=False)
+        if hit is not None:
+            return hit[0]
         try:
             from ..plan.stats import derive
 
             est = float(derive(node, self.catalog).rows)
         except Exception:  # noqa: BLE001 — estimation is best-effort
             est = None
-        self._est_cache[key] = est
+        self._est_cache.put(node, (est,))
         return est
+
+    # -- EXPLAIN ANALYZE notes --
+    def _strategy_note(self, node, name: str) -> None:
+        """Record which strategy ran (EXPLAIN ANALYZE surfaces it)."""
+        if self.collector is not None:
+            self.collector.stats_for(node).detail = f"strategy={name}"
+
+    def _append_detail(self, node, txt: str) -> None:
+        if self.collector is None:
+            return
+        s = self.collector.stats_for(node)
+        if txt not in s.detail:
+            s.detail = f"{s.detail}; {txt}" if s.detail else txt
+
+    def _note_dyn_pruned(self, node, lead_fid: str, pruned: int, where: str,
+                         descs: str) -> None:
+        """Book pruned rows (a combined mask attributed once, to the lead
+        filter id) and refresh the node's EXPLAIN ANALYZE tag with the
+        accumulated total."""
+        self.dyn_ctx.note_pruned(lead_fid, pruned, where)
+        if self.collector is None:
+            return
+        book = self.dyn_ctx.scan_pruned if where == "scan" else self.dyn_ctx.preprobe_pruned
+        total = book.get(lead_fid, pruned)
+        s = self.collector.stats_for(node)
+        tag = f"dyn_pruned={total:,} ({descs})"
+        if "dyn_pruned=" in s.detail:
+            s.detail = re.sub(r"dyn_pruned=[^;]*", tag, s.detail)
+        else:
+            self._append_detail(node, tag)
 
     # -- physical nodes (fragmented plans executed single-node) --
     def _exec_exchange(self, node, page: Page) -> Page:
@@ -185,11 +257,12 @@ class Executor:
                 continue
             m = df.mask(page.block(ch))
             dmask = m if dmask is None else (dmask & m)
-            picked.append(fid)
+            picked.append((fid, df))
         live_keep = keep & page.live_mask()
         would_keep = live_keep.sum()
         out, n = self._dyn_compact(page, live_keep & dmask)
-        self.dyn_ctx.note_pruned(picked[0], int(would_keep) - n, "scan")
+        self._note_dyn_pruned(node, picked[0][0], int(would_keep) - n, "scan",
+                              ",".join(f"{fid}:{df.strategy}" for fid, df in picked))
         return out
 
     # -- dynamic filters (exec/dynfilter.py) --
@@ -204,15 +277,22 @@ class Executor:
 
     def _publish_dynamic_filters(self, node, build_page: Page) -> None:
         """Derive per-key summaries from a materialized build side and
-        publish them under the planner-assigned ids."""
-        if not self._dyn_worthwhile(node):
+        publish them under the planner-assigned ids (none when the
+        `dynamic_filtering` property is off)."""
+        if not self.dynamic_filtering or not self._dyn_worthwhile(node):
             return
         keys = node.right_keys if isinstance(node, N.Join) else node.source_keys
+        notes = []
+        t0 = time.perf_counter()
         live = build_page.live_mask()
         for fid, i, _consumed in node.dynamic_filters:
             df = derive_filter(evaluate(keys[i], build_page), live)
             if df is not None:
                 self.dyn_ctx.publish(fid, df)
+                notes.append(f"{fid}={df.describe()}")
+        if notes and self.collector is not None:
+            ms = (time.perf_counter() - t0) * 1e3
+            self._append_detail(node, f"df[{', '.join(notes)}, derive {ms:.1f}ms]")
 
     def _dyn_compact(self, page: Page, keep) -> Tuple[Page, int]:
         """Compact for dynamic-filter masks, which are typically very
@@ -241,7 +321,8 @@ class Executor:
             keep = m if keep is None else (keep & m)
         before = int(page.count)
         out, n = self._dyn_compact(page, keep)
-        self.dyn_ctx.note_pruned(picked[0][0], before - n, where)
+        self._note_dyn_pruned(node, picked[0][0], before - n, where,
+                              ",".join(f"{fid}:{df.strategy}" for fid, _s, df in picked))
         return out
 
     def _apply_preprobe(self, node, probe: Page) -> Page:
@@ -293,22 +374,27 @@ class Executor:
                 if wider is None:
                     return out
                 max_elems = wider
-        # the dense kernel strategy first, on every device: its wrapper
-        # launches the CUDA kernel for CUDA tensors and runs the plain
-        # version for CPU tensors
+        # the dense kernel strategy first (unless the `pallas_groupby`
+        # property is off), on every device: its wrapper launches the CUDA
+        # kernel for CUDA tensors and runs the plain version for CPU tensors
         from ..ops.groupby_kernel import maybe_grouped_aggregate, maybe_grouped_aggregate_hash
 
-        out = maybe_grouped_aggregate(
-            page, node.group_exprs, node.group_names, node.aggs, node.mask
-        )
-        if out is None:
-            # the hash-slot strategy next: the kernel's second caller on
-            # CUDA, the plain totals on the CPU
-            out = maybe_grouped_aggregate_hash(
+        if self.pallas_groupby:
+            out = maybe_grouped_aggregate(
                 page, node.group_exprs, node.group_names, node.aggs, node.mask
             )
+            if out is not None:
+                self._strategy_note(node, "pallas")
+                return self._shrink(out, node)
+        # the hash-slot strategy next: the kernel's second caller on CUDA,
+        # the plain totals on the CPU
+        out = maybe_grouped_aggregate_hash(
+            page, node.group_exprs, node.group_names, node.aggs, node.mask
+        )
         if out is not None:
+            self._strategy_note(node, "hash-slot")
             return self._shrink(out, node)
+        self._strategy_note(node, "hash-sort")
         # groups <= live rows; guess from the CBO estimate and retry with
         # the true group count on overflow
         est = self._est_rows(node)
@@ -341,9 +427,10 @@ class Executor:
         if plan is not None:
             from ..ops.sort import distinct_packed
 
-            out = self._run_packed(lambda p: distinct_packed(p, plan), page)
+            out = self._run_packed(node, plan, lambda p: distinct_packed(p, plan), page)
             if out is not None:
                 return self._shrink(out, node)
+        self._strategy_note(node, "hash-sort")
         return self._shrink(distinct_page(page, page.capacity), node)
 
     # -- composite-key packing (ops/keypack.py) --
@@ -390,14 +477,15 @@ class Executor:
                             allow_hashed=allow_hashed, single_lane=single_lane,
                             n_order_keys=n_order_keys)
 
-    @staticmethod
-    def _run_packed(fn, page: Page):
+    def _run_packed(self, node, plan, fn, page: Page):
         """Run one packed operator; None when its runtime range check
         tripped (sampled CBO bounds missed, or a hash collided) and the
         caller must run the legacy operator."""
         out, ok = fn(page)
         if ok is not None and not bool(ok):
+            self._strategy_note(node, f"keypack={plan.strategy}->legacy(range)")
             return None
+        self._strategy_note(node, f"keypack={plan.strategy}")
         return out
 
     # -- windows --
@@ -410,8 +498,8 @@ class Executor:
                                   n_order_keys=len(node.order_keys)) if specs else None
         if plan is not None:
             out = self._run_packed(
-                lambda p: window_op_packed(p, node.partition_exprs, node.order_keys,
-                                           node.funcs, plan), page)
+                node, plan, lambda p: window_op_packed(p, node.partition_exprs, node.order_keys,
+                                                       node.funcs, plan), page)
             if out is not None:
                 return out
         return window_op(page, node.partition_exprs, node.order_keys, node.funcs)
@@ -422,7 +510,8 @@ class Executor:
         if plan is not None:
             from ..ops.sort import sort_page_packed
 
-            out = self._run_packed(lambda p: sort_page_packed(p, node.keys, plan), page)
+            out = self._run_packed(node, plan, lambda p: sort_page_packed(p, node.keys, plan),
+                                   page)
             if out is not None:
                 return out
         return sort_page(page, node.keys)
@@ -433,7 +522,7 @@ class Executor:
             from ..ops.sort import top_n_packed
 
             out = self._run_packed(
-                lambda p: top_n_packed(p, node.keys, node.count, plan), page
+                node, plan, lambda p: top_n_packed(p, node.keys, node.count, plan), page
             )
             if out is not None:
                 return out
@@ -493,7 +582,21 @@ class Executor:
             (bs1, tuple(inner.left_keys), names1, names1),
             (bs2, tuple(node.left_keys), names2, names2),
         ))
+        self._strategy_note(inner, "multiway-fused")
+        self._strategy_note(node, f"multiway occ={int(bs1.occupancy() * 100)}%"
+                                  f"/{int(bs2.occupancy() * 100)}%")
         return self._shrink(out, node)
+
+    def _table_note(self, node, bs) -> None:
+        """The hash-table join strategy's note: `pallas` names the CUDA
+        kernels (csrc/join_insert.cu, join_probe.cu), `host` their plain
+        versions on the CPU, as the JAX package names its modes."""
+        if self.collector is None or not isinstance(bs, JoinTable):
+            return
+        mode = "pallas" if bs.slots.device.type == "cuda" else "host"
+        of = len(bs.of_tag)
+        self._strategy_note(node, f"hash-table({mode}) occ={int(bs.occupancy() * 100)}%"
+                                  + (f" of={of}" if of else ""))
 
     def _expand_retrying(self, probe: Page, bs, keys, probe_out, build_out, cap: int,
                          kind: str) -> Page:
@@ -522,6 +625,7 @@ class Executor:
         # the hash table when the build is eligible for one, else the
         # sorted-hash layout (ops/join.py)
         bs = build(right, node.right_keys)
+        self._table_note(node, bs)
         if node.unique_build:
             out = join_n1(left, bs, node.left_keys, right.names, right.names, kind=node.kind)
         else:

@@ -113,6 +113,11 @@ class JoinTable:
     def slot_tag(self) -> torch.Tensor:
         return self.slots[:, 0]
 
+    def occupancy(self) -> float:
+        """Share of the 2^bits slots holding a row (overflow rows excluded;
+        no host read: both counts are known on the host)."""
+        return (self.count - len(self.of_tag)) / (1 << self.bits)
+
     @property
     def slot_row(self) -> torch.Tensor:
         return self.slots[:, 1]

@@ -96,7 +96,7 @@ def sessions(catalog):
     dynamic filters, which only prune rows."""
     ref = RSession(rtpch_device.DeviceTpchCatalog(sf=SF), plan_cache=False, result_cache=False)
     ref.executor.dynamic_filtering = False
-    return Session(catalog, device="cpu"), ref
+    return Session(catalog, device="cpu", result_cache=False), ref
 
 
 @pytest.mark.parametrize("name", tpch_device.TABLE_NAMES)

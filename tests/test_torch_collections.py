@@ -70,7 +70,8 @@ def table_columns(n=96, seed=9):
 def sessions_over(columns, name="t"):
     """(port session, reference session) over one memory table built from
     the same numpy columns."""
-    port = Session(MemoryCatalog({name: Page.from_dict(columns, device="cpu")}), device="cpu")
+    port = Session(MemoryCatalog({name: Page.from_dict(columns, device="cpu")}), device="cpu",
+                   result_cache=False)
     ref = RSession(RMemoryCatalog({name: RPage.from_dict(columns)}), plan_cache=False,
                    result_cache=False)
     return port, ref
@@ -382,7 +383,7 @@ def test_no_name_left_not_ported():
 
 @pytest.fixture(scope="module")
 def tpch():
-    port = Session(TpchCatalog(0.01, device="cpu"), device="cpu")
+    port = Session(TpchCatalog(0.01, device="cpu"), device="cpu", result_cache=False)
     ref = RSession(RTpchCatalog(0.01), plan_cache=False, result_cache=False)
     ref.executor.dynamic_filtering = False
     tables = {n: port.catalog.host_table(n) for n in chip_smoke.TPCH_TABLES}

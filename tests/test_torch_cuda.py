@@ -7,7 +7,8 @@ kernel at the edges of its loads and grid, chip_smoke.py's Q1_EDGES, and
 as one launch per call), and the 22 TPC-H queries, the analytic set of
 chip_smoke.py (windows, set operations, ROLLUP, moments, TABLESAMPLE), the
 103 TPC-DS texts and the scalar function families of chip_smoke.py's
-FUNCTION_SQL (both over TPC-DS SF 0.01) and the hand-coded pipelines on
+FUNCTION_SQL (both over TPC-DS SF 0.01), the hand-coded pipelines and the
+statement sequence of chip_smoke.py's `statements` path (TPC-H SF 0.01) on
 "cuda" against the same on "cpu".
 
 These tests import neither jax nor presto_tpu, so they also run where only
@@ -182,7 +183,9 @@ def sessions_sf001():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cat = TpchCatalog(0.01, device="cuda")
-    return Session(cat, device="cuda"), Session(cat.with_device("cpu"), device="cpu")
+    # without the result cache: every query here must execute
+    return (Session(cat, device="cuda", result_cache=False),
+            Session(cat.with_device("cpu"), device="cpu", result_cache=False))
 
 
 @pytest.mark.cuda
@@ -277,7 +280,9 @@ def tpcds_sf001():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cat = TpcdsCatalog(0.01, device="cuda")
-    return Session(cat, device="cuda"), Session(cat.with_device("cpu"), device="cpu")
+    # without the result cache: every query here must execute
+    return (Session(cat, device="cuda", result_cache=False),
+            Session(cat.with_device("cpu"), device="cpu", result_cache=False))
 
 
 @pytest.mark.cuda
@@ -334,3 +339,25 @@ def test_array_agg_width_retry_and_order_on_card(cuda):
     assert got == cpu.query(sql).rows()
     for g, arr in got:
         assert arr == np.flatnonzero(cols["g"] == g).tolist()
+
+
+@pytest.mark.cuda
+def test_statements_on_card_equal_cpu(cuda):
+    """chip_smoke.py's `statements` sequence (CTAS, INSERT, DELETE with a
+    semi-join, ALTER TABLE, transactions, PREPARE/EXECUTE through the plan
+    and result caches, session properties, SHOW, GRANT/REVOKE) over a
+    MemoryCatalog of TPC-H SF 0.01 on the card against the same on the
+    CPU: every statement's rows, EXPLAIN ANALYZE's per-node rows and
+    strategies, and the cache hits each made; on the card the kernels
+    launch where the path requires them and the repeated EXECUTE
+    launches none (chip_smoke.statement_checks)."""
+    cat = TpchCatalog(0.01, device="cuda")
+    got = chip_smoke.run_statements(chip_smoke.statements_catalog(cat, "cuda"), "cuda")
+    fault = chip_smoke.statement_checks(got)
+    assert fault is None, fault
+    want = chip_smoke.run_statements(
+        chip_smoke.statements_catalog(cat.with_device("cpu"), "cpu"), "cpu")
+    for label, step in got.items():
+        for g, w in zip(step["statements"], want[label]["statements"]):
+            for key in ("rows", "plan_hits", "result_hits"):
+                assert chip_smoke._same_result(g[key], w[key]), (label, g["sql"], key)

@@ -41,7 +41,7 @@ def sessions():
     halve the kernels its jit compiles for a join query."""
     ref = RSession(RCatalog(0.01), plan_cache=False, result_cache=False)
     ref.executor.dynamic_filtering = False
-    return Session(TpchCatalog(0.01, device="cpu"), device="cpu"), ref
+    return Session(TpchCatalog(0.01, device="cpu"), device="cpu", result_cache=False), ref
 
 
 @pytest.mark.parametrize("q", [3, 5, 17, 18, 4, 13, 21, 22])

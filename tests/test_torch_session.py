@@ -1,6 +1,8 @@
 """End to end: TPC-H Q1 and Q6 at SF 0.01 through presto_tpu_torch.Session
 (device="cpu") give exactly presto_tpu.Session's rows (decimals exact), and
-the port's Q1 takes the dense kernel strategy."""
+the port's Q1 takes the dense kernel strategy. What the port's session
+still raises NotPortedError for: materialized views, EXPLAIN (TYPE
+DISTRIBUTED) and USE of a catalog."""
 
 import pytest
 import torch
@@ -64,9 +66,11 @@ def test_session_device_and_unported_paths(sessions):
     arr = ir.Call("array_constructor", (key, key), T.ArrayType(T.BIGINT))
     out = port.executor.run(N.Unnest(scan, (arr,), ("e",), None))
     assert out.names[-1] == "e" and int(out.count) == 50
-    with pytest.raises(NotPortedError, match="not ported yet: statement"):
-        port.query("create table t (x bigint)")
-    with pytest.raises(NotPortedError, match="not ported yet: EXPLAIN ANALYZE"):
-        port.query("explain analyze select 1")
+    with pytest.raises(NotPortedError, match="not ported yet: CreateMaterializedView"):
+        port.query("create materialized view mv as select 1 x")
+    with pytest.raises(NotPortedError, match="not ported yet: EXPLAIN \\(TYPE DISTRIBUTED\\)"):
+        port.query("explain (type distributed) select 1")
+    with pytest.raises(NotPortedError, match="not ported yet: USE catalog.schema"):
+        port.query("use tpch.tiny")
     with pytest.raises(ExecutionError, match="not ported yet: Values2"):
         port.executor.exec_node(type("Values2", (N.PlanNode,), {})())

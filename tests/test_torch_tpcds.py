@@ -76,7 +76,7 @@ def test_catalog_pages_on_its_device():
 def port_session():
     """The port's CPU session at SF 0.02, one per test process: every file
     that imports this module in a worker shares it and its tables."""
-    return Session(tpcds.TpcdsCatalog(SF, device="cpu"), device="cpu")
+    return Session(tpcds.TpcdsCatalog(SF, device="cpu"), device="cpu", result_cache=False)
 
 
 @functools.lru_cache(maxsize=None)

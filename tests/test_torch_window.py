@@ -178,7 +178,7 @@ def _ref(catalog):
 @pytest.fixture(scope="module")
 def sessions():
     return (
-        Session(TpchCatalog(SF, device="cpu"), device="cpu"),
+        Session(TpchCatalog(SF, device="cpu"), device="cpu", result_cache=False),
         _ref(RCatalog(SF)),
     )
 
