@@ -41,6 +41,17 @@ numpy splitmix64), each held against an independent numpy computation.
 Both paths must launch kernels 1-3. One warm run of each of their
 queries is then traced (device busy time, idle share, launches,
 device-to-host reads).
+Then the streaming executor's paths (exec/stream.py): `streaming22`, the
+same 23 texts through a streaming session over the same catalog under a
+12 MiB device budget, each held to the `tpch22` card rows (the outer
+joins of Q13, Q20 and the variant raise MemoryExceededError past the
+budget and rerun at 4x; a raise anywhere else fails), with its
+spill tags, disk bytes, hybrid parts, pool.peak and the card's peak
+allocation; then `sf10`, scale.QUERIES q6/q1/q3/q5/q17/q18 streamed from
+ChunkedTpchCatalog(10) (batches generated on the card) under 512 MiB,
+each held to numpy over the same columns generated on the host (in a
+process spawned at the start), with the card's peak allocation below the
+bytes of the lineitem columns it reads. Both launch kernels 1-3.
 Then the TPC-DS paths, over `TpcdsCatalog(1.0)` on the card: `tpcds`, the
 103 TPC-DS texts, each cold then twice warm, each run held against the
 same text through the port on the CPU (computed meanwhile by five spawned
@@ -49,7 +60,8 @@ processes over tables generated from the same seeds; rows in order, as
 time per text, the weak checks listed (no rows, or a ROLLUP with only its
 grand-total row), a summary line, and kernels 1-3 required; `functions`,
 one SELECT per family of the scalar function library (FUNCTION_SQL) held
-against the CPU over the same host tables. One warm run of every
+against the CPU over the same host tables; `not_in` (NOT_IN_SQL, NOT IN
+over a nullable key, against numpy). One warm run of every
 `tpcds` text above 20 ms and of every `functions` family is traced in a
 new process (`start_traces`), while the CPU side finishes.
 Then `collections` on the TPC-H SF 1 session (COLLECTION_SQL): ARRAY and
@@ -1155,6 +1167,10 @@ def tpch22_texts():
     return texts
 
 
+# label -> the card rows of the `tpch22` path, which `streaming22` is held to
+TPCH22_ROWS = {}
+
+
 def tpch22_path(sess, cpu_sess, runs=3):
     """All 22 TPC-H queries and the Q20 variant through Session.query on
     the card, each held against the same query through the port on the
@@ -1169,6 +1185,7 @@ def tpch22_path(sess, cpu_sess, runs=3):
         cold, warm, launches, rows = _timed_runs(
             lambda: sess.query(text).rows(), runs, lambda got: row_diff(got, want),
             f"{label} on the card against the CPU")
+        TPCH22_ROWS[label] = rows
         if (len(rows) == 0) != (label == "Q20"):
             raise AssertionError(f"{label} returned {len(rows)} rows")
         report[label] = {"result_rows": len(rows), "launches": launches, "cold_ms": cold,
@@ -1214,6 +1231,307 @@ def trace_paths(sess, tpch22, analytic):
         summary, _ = profile_one(lambda: run_analytic(sess, name), rep["warm_ms"])
         rep["profile"] = summary
         print(f"phase3 analytic {name}", json.dumps(rep), flush=True)
+
+
+# -- phase 3: the streaming executor and its memory ladder (exec/stream.py) --
+
+STREAM_BATCH = 1 << 20  # streaming22: rows per batch
+# streaming22's device budget B: 12 MiB makes Q3's, Q5's and Q21's largest
+# builds (about 7.5-9.9 MiB at SF 1 in the port's plans; an inner build may
+# hold half the budget left) offload, and leaves Q13's 40 MiB outer build
+# (an outer join raises past the budget, as in the JAX package) room at
+# 4 x B on its rerun (the CPU rehearsal at SF 1, PERF.md)
+STREAM_BUDGET = 12 << 20
+# the texts whose state offloads at B (the CPU rehearsal at SF 1), and how
+STREAM_MUST_OFFLOAD = {"Q3": "join_build", "Q4": "semijoin_source", "Q5": "join_build",
+                       "Q7": "join_build", "Q8": "join_build", "Q9": "join_build",
+                       "Q10": "join_build", "Q12": "join_build", "Q18": "aggregate",
+                       "Q21": "join_build", "Q22": "semijoin_source"}
+# the texts whose outer-join build exceeds B: they raise MemoryExceededError
+# at B and rerun at 4 x B; a raise from any other text fails the path
+STREAM_MAY_RAISE = ("Q13", "Q20", "Q20_variant")
+SF10 = 10.0
+SF10_BATCH = 1 << 22  # run_sf100's defaults
+SF10_BUDGET = 512 << 20
+SF10_QUERIES = ("q6", "q1", "q3", "q5", "q17", "q18")
+
+
+def _ladder(ex):
+    """The spill tags and counters of one streaming run."""
+    st = ex.spill_stats
+    return {"spill": sorted(set(ex.spill_events)), "disk_bytes": st["disk_bytes"],
+            "hybrid_parts": st["hybrid_parts"], "hybrid_depth": st["hybrid_depth"],
+            "chunk_fallbacks": st["chunk_fallbacks"], "ragged_pages": st["ragged_pages"],
+            "agg_hash_batches": st["agg_hash_batches"],
+            "agg_dense_batches": st["agg_dense_batches"], "pool_peak": ex.pool.peak}
+
+
+def streaming_run(cat, sql, budget, batch_rows, device="cuda"):
+    """One query in a new streaming session over `cat`. Returns (rows, wall
+    ms, ladder, the card's peak allocated bytes above the allocation before
+    the query, launches of kernels 1-3)."""
+    import torch
+
+    from presto_tpu_torch.session import Session
+
+    sess = Session(cat, device=device, streaming=True, batch_rows=batch_rows,
+                   memory_budget=budget, result_cache=False)
+    base = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    before = _counts()
+    t = time.perf_counter()
+    rows = sess.query(sql).rows()  # rows() syncs to the host
+    wall = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base if device == "cuda" else 0
+    launches = {k: v - before[k] for k, v in _counts().items() if k != "q1_partials"}
+    return rows, wall, _ladder(sess.executor), peak, launches
+
+
+def streaming22_path(cat, budget=STREAM_BUDGET, device="cuda"):
+    """The 22 TPC-H texts and the Q20 variant through a streaming session
+    over the `tpch22` session's catalog under the device budget `budget`,
+    each held to the `tpch22` path's card rows of this run (in order, the
+    same tolerance). An outer join whose build exceeds the budget raises
+    MemoryExceededError, as in the JAX package: exactly the texts of
+    STREAM_MAY_RAISE must raise so, and each reruns at 4x the budget,
+    where it must be equal. Every run's pool.peak stays within its budget,
+    and no spill file is left. Returns {label: report}."""
+    from presto_tpu_torch.exec import spillspace
+    from presto_tpu_torch.exec.memory import MemoryExceededError
+
+    report = {}
+    for label, text in tpch22_texts().items():
+        want = TPCH22_ROWS[label]
+        b, raised = budget, None
+        try:
+            rows, cold, ladder, peak, launches = streaming_run(cat, text, b, STREAM_BATCH, device)
+        except MemoryExceededError as e:
+            raised = str(e)
+            if label not in STREAM_MAY_RAISE or "outer join" not in raised:
+                raise AssertionError(f"streaming22 {label} raised at B={budget}: {raised}")
+            b = 4 * budget
+            rows, cold, ladder, peak, launches = streaming_run(cat, text, b, STREAM_BATCH, device)
+        if label in STREAM_MAY_RAISE and raised is None:
+            raise AssertionError(f"streaming22 {label} no longer raises at B={budget}")
+        diff = row_diff(rows, want)
+        if diff is not None:
+            raise AssertionError(f"streaming22 {label} differs from tpch22: {diff}")
+        rows2, warm, ladder2, peak2, _ = streaming_run(cat, text, b, STREAM_BATCH, device)
+        diff = row_diff(rows2, want)
+        if diff is not None:
+            raise AssertionError(f"streaming22 {label} (warm) differs from tpch22: {diff}")
+        for lad in (ladder, ladder2):
+            if lad["pool_peak"] > b:
+                raise AssertionError(f"streaming22 {label}: pool.peak {lad['pool_peak']} > {b}")
+        report[label] = {"result_rows": len(rows), "budget": b, "raised": raised,
+                         "launches": launches, "cold_ms": cold, "warm_ms": warm,
+                         "card_peak_bytes": max(peak, peak2), **ladder}
+        print(f"phase3 streaming22 {label}", json.dumps(report[label]), flush=True)
+    if spillspace.all_active_bytes() or spillspace.all_active_files():
+        raise AssertionError("streaming22 left spill files behind")
+    missing = [q for q, tag in STREAM_MUST_OFFLOAD.items() if tag not in report[q]["spill"]]
+    if missing:
+        raise AssertionError(f"streaming22: {missing} did not offload at B={budget}")
+    if not any("hybrid_hash_join" in r["spill"] for r in report.values()):
+        raise AssertionError("streaming22: no text took the hybrid hash join")
+    return report
+
+
+class _HostColumn:
+    def __init__(self, data, dictionary):
+        self.data, self.dictionary = data, dictionary
+
+
+class _HostTable:
+    def __init__(self, columns):
+        self.columns = columns
+
+
+def chunked_host_tables(sf):
+    """Every table of ChunkedTpchCatalog(sf) generated once on the HOST (its
+    CPU twin, bit-identical to the card's batches), in the layout the numpy
+    checks read."""
+    from presto_tpu_torch.benchmark.scale import ChunkedTpchCatalog
+
+    host = ChunkedTpchCatalog(sf, device="cpu")
+    out = {}
+    for name in host.table_names():
+        page = host.scan(name, 0, host.row_count(name))
+        out[name] = _HostTable({c: _HostColumn(b.data.numpy(), b.dictionary)
+                                for c, b in zip(page.names, page.blocks)})
+    return out
+
+
+def numpy_scale_q1(li):
+    """scale.Q1 (sum_qty, sum_base_price, sum_disc_price, avg_qty, avg_disc,
+    count_order) from numpy_q1's columns."""
+    return [r[:5] + (r[6], r[8], r[9]) for r in numpy_q1(li)]
+
+
+SF10_CHECKS = {
+    "q6": lambda t: numpy_q6(t["lineitem"]),
+    "q1": lambda t: numpy_scale_q1(t["lineitem"]),
+    "q3": numpy_q3,
+    "q5": numpy_q5,
+    "q17": numpy_q17,
+    "q18": lambda t: numpy_q18(t, with_name=False),
+}
+
+
+def lineitem_bytes_read(sess, sql, n_rows):
+    """Device bytes of the lineitem columns the plan of `sql` scans, at
+    `n_rows` rows (storage widths; a column scanned twice counts once)."""
+    import torch
+
+    from presto_tpu_torch.plan import nodes as N
+
+    cols = {}
+
+    def walk(node):
+        if isinstance(node, N.TableScan) and node.table == "lineitem":
+            for _ch, col, typ in node.columns:
+                cols[col] = torch.empty((), dtype=typ.storage_dtype).element_size() * (
+                    2 if getattr(typ, "is_long", False) else 1)
+        for c in node.children:
+            walk(c)
+
+    walk(sess.plan(sql))
+    return sum(cols.values()) * n_rows, sorted(cols)
+
+
+def sf10_expect(sf):
+    """The numpy checks of the `sf10` queries over ChunkedTpchCatalog(sf)'s
+    columns generated on the host, and the seconds the generation and the
+    checks took."""
+    import torch
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    tables = chunked_host_tables(sf)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    expect = {q: SF10_CHECKS[q](tables) for q in SF10_QUERIES}
+    return expect, gen_s, time.perf_counter() - t0
+
+
+def start_sf10_expect(sf=None):
+    """sf10_expect in one new (spawned) process, so the host side overlaps
+    the card paths before `sf10`. Returns (pool, future)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(sf10_expect, SF10 if sf is None else sf)
+
+
+def sf10_path(expect_future=None, device="cuda"):
+    """scale.QUERIES q6, q1, q3, q5, q17, q18 (run_sf100's texts and
+    defaults) streamed from ChunkedTpchCatalog(10) on the card, each cold
+    then warm, held to the numpy checks over the same columns generated on
+    the host (`expect_future`, from start_sf10_expect; computed here when
+    None). pool.peak stays within the budget, the card's peak allocation
+    of every query stays below the bytes of the lineitem columns it reads
+    (the table is never resident), and at least one query offloads.
+    Returns {query: report}."""
+    import torch
+
+    from presto_tpu_torch.benchmark.scale import QUERIES, ChunkedTpchCatalog
+    from presto_tpu_torch.exec import spillspace
+    from presto_tpu_torch.session import Session
+
+    cat = ChunkedTpchCatalog(SF10, device=device)
+    n = cat.row_count("lineitem")
+    t0 = time.perf_counter()
+    expect, gen_s, check_s = (expect_future.result() if expect_future is not None
+                              else sf10_expect(SF10))
+    print(f"phase3 sf10 lineitem rows={n}, host tables generated in {gen_s:.3f} s, numpy "
+          f"checks in {check_s:.3f} s (waited {time.perf_counter() - t0:.3f} s)", flush=True)
+    planner = Session(cat, device=device, result_cache=False)
+    report = {q: sf10_query(cat, planner, q, QUERIES[q], expect[q], n, device)
+              for q in SF10_QUERIES}
+    if spillspace.all_active_bytes() or spillspace.all_active_files():
+        raise AssertionError("sf10 left spill files behind")
+    if not any(r["spill"] for r in report.values()):
+        raise AssertionError("sf10: no query offloaded")
+    del cat
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return report
+
+
+def sf10_query(cat, planner, q, sql, want, n, device):
+    """One sf10 query, cold then warm, checked; returns its report."""
+    li_bytes, li_cols = lineitem_bytes_read(planner, sql, n)
+    runs = [streaming_run(cat, sql, SF10_BUDGET, SF10_BATCH, device) for _ in range(2)]
+    for i, (rows, _wall, ladder, peak, _l) in enumerate(runs):
+        if rows != want:
+            raise AssertionError(f"sf10 {q} run {i} differs from numpy:\n{rows[:3]}\n"
+                                 f"{want[:3]}")
+        if ladder["pool_peak"] > SF10_BUDGET:
+            raise AssertionError(f"sf10 {q}: pool.peak {ladder['pool_peak']} > budget")
+        if device == "cuda" and peak >= li_bytes:
+            raise AssertionError(f"sf10 {q}: card peak {peak} >= lineitem bytes {li_bytes}")
+    (rows, cold, ladder, peak, launches), (_r2, warm, _l2, peak2, _) = runs
+    report = {"result_rows": len(rows), "launches": launches, "cold_ms": cold,
+              "warm_ms": warm, "lineitem_rows_per_s": n / (warm / 1e3),
+              "lineitem_bytes_read": li_bytes, "lineitem_columns": li_cols,
+              "card_peak_bytes": max(peak, peak2), **ladder}
+    print(f"phase3 sf10 {q}", json.dumps(report), flush=True)
+    return report
+
+
+# NOT IN over a nullable foreign key (web_sales.ws_ship_customer_sk is NULL
+# on about 4 % of the rows): NULL probe rows are dropped (N1), and a
+# subquery that holds a NULL selects nothing, the classic pitfall (N2)
+NOT_IN_SQL = {
+    "N1": "select count(*), sum(ws_quantity) from web_sales where ws_ship_customer_sk not in "
+          "(select c_customer_sk from customer where c_birth_year < 1950)",
+    "N2": "select count(*) from customer where c_customer_sk not in "
+          "(select ws_ship_customer_sk from web_sales where ws_quantity > 95)",
+}
+
+
+def not_in_checks(cat):
+    """N1 and N2 in numpy over the TPC-DS host tables (three-valued NOT IN)."""
+    import numpy as np
+
+    ws, c = (cat.host_table(n).columns for n in ("web_sales", "customer"))
+
+    def valid(col):
+        return np.ones(len(col.data), bool) if col.valid is None else col.valid
+
+    by = c["c_birth_year"]
+    s1 = c["c_customer_sk"].data[valid(by) & (by.data < 1950) & valid(c["c_customer_sk"])]
+    key, qty = ws["ws_ship_customer_sk"], ws["ws_quantity"]
+    keep = valid(key) & ~np.isin(key.data, s1)
+    out = {"N1": [(int(keep.sum()), int(qty.data[keep & valid(qty)].sum()))]}
+    sel = valid(qty) & (qty.data > 95)
+    probe = c["c_customer_sk"]
+    if not sel.any():
+        n2 = len(probe.data)  # an empty subquery keeps every row, NULLs too
+    elif (sel & ~valid(key)).any():
+        n2 = 0  # a NULL in the subquery: no row is TRUE
+    else:
+        n2 = int((valid(probe) & ~np.isin(probe.data, key.data[sel])).sum())
+    out["N2"] = [(n2,)]
+    return out
+
+
+def not_in_path(sess, cat, runs=2):
+    """NOT_IN_SQL on the TPC-DS session, held to numpy. Returns {label: report}."""
+    want = not_in_checks(cat)
+    report = {}
+    for label, sql in NOT_IN_SQL.items():
+        cold, warm, launches, rows = _timed_runs(
+            lambda: sess.query(sql).rows(), runs, lambda got: row_diff(got, want[label]),
+            f"{label} against numpy")
+        report[label] = {"rows": [list(r) for r in rows], "launches": launches,
+                         "cold_ms": cold, "warm_ms": warm}
+        print(f"phase3 not_in {label}", json.dumps(report[label]), flush=True)
+    return report
 
 
 # -- phase 3: TPC-DS at SF 1, and the scalar function library ---------------
@@ -2933,6 +3251,8 @@ def main() -> int:
     print(f"phase1 built {len(logs)} kernel libraries in {secs:.3f} s", flush=True)
     check_params_layout()
 
+    # sf10's numpy checks in a new process, overlapping the paths before it
+    sf10_pool, sf10_future = start_sf10_expect()
     sess, cat = make_session()
     tables = {name: cat.host_table(name) for name in TPCH_TABLES}
 
@@ -2999,6 +3319,30 @@ def main() -> int:
     trace_paths(sess, tpch22, analytic)
     print(f"phase3 tpch22 and analytic traced in {time.perf_counter() - t0:.3f} s", flush=True)
 
+    # phase 3, the streaming executor (exec/stream.py): the 22 texts over
+    # the same catalog under a device budget that forces every rung of the
+    # ladder, then SF 10 streamed from the chunked catalog; the counts at 0
+    # just before each
+    t0 = time.perf_counter()
+    _zero_counts()
+    streaming22_path(cat)
+    path_counts["streaming22"] = _counts()
+    print(f"phase3 streaming22 launches {json.dumps(path_counts['streaming22'])} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    _zero_counts()
+    try:
+        sf10_path(sf10_future)
+    finally:
+        sf10_pool.shutdown(cancel_futures=True)
+    path_counts["sf10"] = _counts()
+    print(f"phase3 sf10 launches {json.dumps(path_counts['sf10'])} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for path in ("streaming22", "sf10"):
+        for k in ("groupby_partials", "join_insert", "join_probe"):
+            if path_counts[path][k] < 1:
+                raise AssertionError(f"the {path} path did not launch {k}")
+
     # phase 3, TPC-DS at SF 1: the 103 texts on the card, then the scalar
     # function library against the CPU over the same host tables, the
     # counts at 0 just before each path; then one traced warm run of each
@@ -3019,6 +3363,12 @@ def main() -> int:
         functions = functions_path(ds_sess, ds_cpu)
         path_counts["functions"] = _counts()
         del ds_cpu
+        _zero_counts()
+        not_in_path(ds_sess, ds_cat)
+        path_counts["not_in"] = _counts()
+        for k in ("join_insert", "join_probe"):
+            if path_counts["not_in"][k] < 1:
+                raise AssertionError(f"the not_in path did not launch {k}")
         items = [("tpcds", q, ds_texts[q], r["warm_ms"]) for q, r in tpcds.items()
                  if r["warm_ms"] > TRACE_MIN_WARM_MS]
         items += [("functions", f, FUNCTION_SQL[f], r["warm_ms"])

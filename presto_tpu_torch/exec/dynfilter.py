@@ -21,6 +21,7 @@ non-matching probe rows early is an identity on the result.
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -214,3 +215,165 @@ class DynamicFilterContext:
         self._filters.clear()
         self.scan_pruned.clear()
         self.preprobe_pruned.clear()
+
+
+# ---------------------------------------------------------------------------
+# host accumulation + summaries (the host half of the JAX package's
+# exec/dynfilter.py:383-602): filters derived from an offloaded build side
+# that lives in pinned host memory or on disk (exec/stream.py
+# _publish_host_filters). The cluster half (merge_summaries, shipping
+# between tasks) waits for the server port.
+# ---------------------------------------------------------------------------
+
+
+def in_list_limit() -> int:
+    return IN_LIST_LIMIT
+
+
+def _bloom_words_host(hashes: np.ndarray, log2_bits: int,
+                      words: Optional[np.ndarray] = None) -> np.ndarray:
+    """OR the bits of int64 `hashes` into uint32 bloom words (ops/bloomfilter
+    on the CPU, so a host-built filter answers the card's probes)."""
+    h = torch.from_numpy(np.ascontiguousarray(hashes).view(np.int64))
+    built = bloom_build(h, torch.ones(h.shape, dtype=torch.bool), log2_bits)
+    new = built.numpy().astype(np.uint32)
+    return new if words is None else (words | new)
+
+
+class HostFilterAccumulator:
+    """Accumulates a filter summary on the HOST over numpy columns (spilled
+    build sides). Varchar and long-decimal channels are skipped (dictionary
+    codes are per-dictionary; 2-lane storage has no scalar summary)."""
+
+    def __init__(self, channel: str):
+        self.channel = channel
+        self.typ = None
+        self.count = 0
+        self.lo = None
+        self.hi = None
+        self.values: Optional[set] = set()  # None once overflowed
+        self.words: Optional[np.ndarray] = None
+        self.log2_bits = choose_log2_bits(in_list_limit() * 4)
+        self.unsupported = False
+
+    def add_numpy(self, data: np.ndarray, valid, typ) -> None:
+        """Accumulate raw host columns."""
+        if self.unsupported:
+            return
+        if data.ndim != 1 or isinstance(typ, T.VarcharType) or not _is_ordered_storage(typ):
+            self.unsupported = True
+            return
+        self.typ = typ
+        if valid is not None:
+            data = data[valid]
+        if np.issubdtype(data.dtype, np.floating):
+            data = data[~np.isnan(data)]  # NaN never equi-matches
+        if not len(data):
+            return
+        self.count += len(data)
+        lo, hi = data.min(), data.max()
+        self.lo = lo if self.lo is None else min(self.lo, lo)
+        self.hi = hi if self.hi is None else max(self.hi, hi)
+        if self.values is not None:
+            self.values.update(np.unique(data).tolist())
+            if len(self.values) > in_list_limit():
+                self.values = None  # overflow: bloom only from here on
+        self.words = _bloom_words_host(_host_hash(data), self.log2_bits, self.words)
+
+    def summary(self) -> Optional[dict]:
+        """JSON-able summary, or None when nothing useful accrued."""
+        if self.unsupported or self.typ is None:
+            return None
+        out = {
+            "count": self.count,
+            "type": repr(self.typ),
+            "lo": _json_scalar(self.lo),
+            "hi": _json_scalar(self.hi),
+            "float": isinstance(self.typ, (T.DoubleType, T.RealType)),
+            # REAL keys hash by their float32 bit pattern: a values->bloom
+            # conversion must re-hash at the same width
+            "real": isinstance(self.typ, T.RealType),
+        }
+        if self.count == 0:
+            out["empty"] = True
+            return out
+        if self.values is not None:
+            out["values"] = [_json_scalar(v) for v in sorted(self.values)]
+        else:
+            out["bloom_b64"] = base64.b64encode(self.words.tobytes()).decode()
+            out["log2_bits"] = self.log2_bits
+        return out
+
+
+def _host_hash(data: np.ndarray) -> np.ndarray:
+    """Host replica of ops/hashing.hash_column for 1-D numeric storage,
+    bit-identical (as uint64), so host-built blooms answer the device's
+    probes."""
+    if np.issubdtype(data.dtype, np.floating):
+        data = np.where(data == 0, np.zeros_like(data), data)
+        data = np.where(np.isnan(data), np.full_like(data, np.nan), data)
+        width = data.dtype.itemsize
+        bits = data.view({4: np.uint32, 8: np.uint64}[width]).astype(np.uint64)
+    else:
+        bits = data.astype(np.uint64)
+    with np.errstate(over="ignore"):
+        x = bits
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def _json_scalar(v):
+    if v is None:
+        return None
+    if isinstance(v, (np.floating, float)):
+        return float(v)
+    return int(v)
+
+
+def _words_of(summary: dict) -> Optional[np.ndarray]:
+    """The uint32 bloom words of a summary; a pure value set converts by
+    hashing at the key's STORAGE width (REAL keys hash their float32 bit
+    pattern, as the device probe does)."""
+    b64 = summary.get("bloom_b64")
+    if b64 is None:
+        vals = summary.get("values")
+        if vals is None:
+            return None
+        lb = summary.get("log2_bits") or choose_log2_bits(in_list_limit() * 4)
+        if summary.get("real"):
+            dt = np.float32
+        elif summary.get("float"):
+            dt = np.float64
+        else:
+            dt = np.int64
+        return _bloom_words_host(_host_hash(np.asarray(vals, dt)), lb)
+    return np.frombuffer(base64.b64decode(b64), np.uint32).copy()
+
+
+def filter_from_summary(summary: Optional[dict], key_type, device="cpu") -> Optional[DynamicFilter]:
+    """A device-queryable DynamicFilter from a host summary."""
+    if summary is None:
+        return None
+    if summary.get("empty"):
+        return DynamicFilter("minmax", 0, empty_build=True)
+    device = torch.device(device)
+    dt = torch.float64 if summary.get("float") else torch.int64
+    count = summary.get("count", 0)
+    lo_h, hi_h = summary.get("lo"), summary.get("hi")
+    lo = hi = None
+    if lo_h is not None:
+        lo = torch.tensor(lo_h, dtype=dt, device=device)
+        hi = torch.tensor(hi_h, dtype=dt, device=device)
+    if "values" in summary:
+        values = torch.tensor(summary["values"], dtype=dt, device=device)
+        return DynamicFilter("inlist", count or int(values.shape[0]), lo=lo, hi=hi,
+                             values=values)
+    if "bloom_b64" in summary:
+        words = np.frombuffer(base64.b64decode(summary["bloom_b64"]), np.uint32)
+        return DynamicFilter("bloom", count, lo=lo, hi=hi,
+                             bloom_words=torch.from_numpy(words.astype(np.int64)).to(device),
+                             log2_bits=int(summary["log2_bits"]))
+    if lo is None:
+        return None
+    return DynamicFilter("minmax", count, lo=lo, hi=hi)

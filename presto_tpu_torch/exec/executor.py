@@ -41,7 +41,8 @@ from ..expr.compiler import evaluate, project_page
 from ..expr.ir import Call, ColumnRef
 from ..ops.aggregate import global_aggregate, grouped_aggregate_sorted
 from ..ops.filter import compact, filter_page
-from ..ops.join import build, join_expand, join_n1, semi_match_mask
+from ..ops.join import (build, join_expand, join_n1, null_aware_anti, semi_match_mask,
+                        source_null_state)
 from ..ops.join_kernel import JoinTable, build_table, table_multiway_n1
 from ..ops.sort import distinct_page, limit_page, sort_page, top_n
 from ..page import Block, Page, round_capacity
@@ -695,7 +696,11 @@ class Executor:
             if node.mark is not None:
                 mask = semi_match_mask(probe, bs, node.probe_keys)
                 return self._attach_mark(probe, mask, node.mark)
-            return self._shrink(join_n1(probe, bs, node.probe_keys, [], [], kind=kind), node)
+            out = join_n1(probe, bs, node.probe_keys, [], [], kind=kind)
+            if node.null_aware:
+                empty, has_null = source_null_state(source, node.source_keys)
+                out = null_aware_anti(out, node.probe_keys, empty, has_null)
+            return self._shrink(out, node)
         # residual EXISTS: expand probe x source on the equi keys, filter the
         # residual, then keep probe rows whose row id survived
         rid = self._row_id_channel(probe)

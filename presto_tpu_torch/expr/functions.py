@@ -256,8 +256,13 @@ def _to_lanes(v: Val, to_scale: int):
     from ..ops import decimal128 as d128
 
     s = _scale_of(v.type)
-    lanes = v.data if v.data.ndim == 2 else d128.from_int64(v.data.to(torch.int64))
-    return d128.rescale(lanes, to_scale - s)
+    n = v.data.shape[0]
+    data = v.data
+    if v.literal is not None and v.valid is None and n > 1:
+        data = data[:1]  # a constant: convert one row, then broadcast it
+    lanes = data if data.ndim == 2 else d128.from_int64(data.to(torch.int64))
+    lanes = d128.rescale(lanes, to_scale - s)
+    return lanes.expand(n, 2) if lanes.shape[0] != n else lanes
 
 
 # ---------------------------------------------------------------------------

@@ -1029,6 +1029,38 @@ class AvgPost:
     input_type: T.Type
 
 
+def decompose_partial(aggs: Sequence[AggSpec]):
+    """(partial_specs, final_specs, post_steps) of a decomposable
+    aggregation (the JAX package's decompose_partial): partial specs run
+    per batch, final specs over the concatenated partial rows, post steps
+    derive avg. The sketch, moment and regression aggregates raise
+    KeyError here, as a non-decomposable aggregate does in the JAX
+    package: their callers aggregate the whole input in one pass."""
+    from ..expr.ir import ColumnRef
+
+    partial, final, post = [], [], []
+    for a in aggs:
+        if a.func in ("count", "count_star", "checksum"):
+            partial.append(a)
+            final.append(AggSpec("sum", ColumnRef(a.name, T.BIGINT), a.name, T.BIGINT))
+        elif a.func in ("sum", "min", "max"):
+            partial.append(a)
+            final.append(AggSpec(a.func, ColumnRef(a.name, a.output_type), a.name,
+                                 a.output_type))
+        elif a.func == "avg":
+            in_t = a.input.type
+            sum_t = AggSpec.infer_output_type("sum", in_t)
+            s_name, c_name = f"{a.name}$sum", f"{a.name}$cnt"
+            partial.append(AggSpec("sum", a.input, s_name, sum_t))
+            partial.append(AggSpec("count", a.input, c_name, T.BIGINT))
+            final.append(AggSpec("sum", ColumnRef(s_name, sum_t), s_name, sum_t))
+            final.append(AggSpec("sum", ColumnRef(c_name, T.BIGINT), c_name, T.BIGINT))
+            post.append(AvgPost(a.name, s_name, c_name, a.output_type, in_t))
+        else:
+            raise KeyError(f"cannot decompose aggregate {a.func!r}")
+    return tuple(partial), tuple(final), tuple(post)
+
+
 def apply_avg_post(page: Page, aggs: Sequence[AggSpec], post: Sequence[AvgPost]) -> Page:
     """Produce the user-visible columns (group keys + aggregates in `aggs`
     order) from a final-aggregated page containing decomposed columns."""

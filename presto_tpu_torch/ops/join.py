@@ -180,6 +180,31 @@ def semi_match_mask(probe: Page, bs, probe_key_exprs) -> torch.Tensor:
     return matched & probe.live_mask()
 
 
+def source_null_state(source: Page, source_key_exprs):
+    """(empty, has_null) of a NOT IN source, as 0-d bool tensors on its
+    device: no live row, and a live row with a NULL key. Reductions only,
+    so the caller's mask needs no host read."""
+    live = source.live_mask()
+    has_null = torch.zeros((), dtype=torch.bool, device=source.device)
+    for e in source_key_exprs:
+        v = evaluate(e, source)
+        if v.valid is not None:
+            has_null = has_null | (live & ~v.valid).any()
+    return ~live.any(), has_null
+
+
+def null_aware_anti(page: Page, probe_key_exprs, empty, has_null) -> Page:
+    """Presto's `v NOT IN (S)` over the rows an anti join kept: all of them
+    when S is empty; otherwise none when S holds a NULL, and never a row
+    whose v is NULL (its comparison is NULL, not true)."""
+    probe_null = torch.zeros(page.capacity, dtype=torch.bool, device=page.device)
+    for e in probe_key_exprs:
+        v = evaluate(e, page)
+        if v.valid is not None:
+            probe_null = probe_null | ~v.valid
+    return compact(page, empty | (~probe_null & ~has_null))
+
+
 def join_expand(probe: Page, bs, probe_key_exprs, probe_out: Sequence[str],
                 build_out: Sequence[Tuple[str, str]], out_capacity: int,
                 kind: str = "inner"):

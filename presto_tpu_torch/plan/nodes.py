@@ -236,6 +236,10 @@ class SemiJoin(PlanNode):
     # dynamic filters produced from `source` (plain semi joins only —
     # anti/mark keep or annotate non-matching probe rows)
     dynamic_filters: Tuple[Tuple[str, int, bool], ...] = ()
+    # NOT IN (subquery): an anti join with SQL's three-valued IN. A NULL
+    # probe value, or a NULL among the source keys, makes `v NOT IN (S)`
+    # NULL (row dropped) unless S is empty. NOT EXISTS leaves it False.
+    null_aware: bool = False
 
     @property
     def fields(self):

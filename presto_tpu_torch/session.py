@@ -10,15 +10,18 @@ Ported: SELECT through the plan and result caches (exec/qcache.py), the
 statement layer (DDL and DML on writable connectors, transactions, views,
 schemas, PREPARE/EXECUTE over plan skeletons, session properties, ALTER
 TABLE, GRANT/REVOKE under security.py, SHOW and DESCRIBE), EXPLAIN,
-EXPLAIN (TYPE VALIDATE | IO) and EXPLAIN ANALYZE (exec/stats.py).
+EXPLAIN (TYPE VALIDATE | IO) and EXPLAIN ANALYZE (exec/stats.py), and the
+streaming executor under a device budget (exec/stream.py: `streaming`,
+`batch_rows`, `memory_budget`, as arguments or SET SESSION properties).
 Not ported, raising NotPortedError: materialized views, USE of a
-catalog, EXPLAIN (TYPE DISTRIBUTED), and the streaming and matmul
-group-by properties; the JAX package's mesh, streaming executor,
-observability spans and history feedback have no counterpart here.
+catalog, EXPLAIN (TYPE DISTRIBUTED), and the matmul group-by property;
+the JAX package's mesh, observability spans and history feedback have no
+counterpart here.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -110,11 +113,41 @@ def parse_session_properties(text: str) -> dict:
 
 
 def _check_ported_properties(props: dict) -> None:
-    """The streaming executor and the matmul group-by are not ported:
-    turning either on raises."""
-    for name in ("streaming", "matmul_groupby"):
-        if props.get(name):
-            raise NotPortedError(f"not ported yet: SET SESSION {name} = true")
+    """The matmul group-by is not ported: turning it on raises."""
+    if props.get("matmul_groupby"):
+        raise NotPortedError("not ported yet: SET SESSION matmul_groupby = true")
+
+
+def memory_line(ex) -> str:
+    """EXPLAIN ANALYZE's `-- memory:` footer of a streaming run: every rung
+    of the ladder the query touched (offload events, the disk tier, hybrid
+    partitions and recursion, the ragged layout, the aggregate sink's
+    kernel batches, revocations), plus over-frees; empty when none."""
+    st = ex.spill_stats
+    pool = ex.pool
+    parts = []
+    if ex.spill_events:
+        parts.append("spill " + ",".join(sorted(set(ex.spill_events))))
+    if st["disk_bytes"]:
+        parts.append(f"disk {st['disk_bytes']:,}B")
+    if st["hybrid_parts"]:
+        parts.append(f"hybrid parts={st['hybrid_parts']} depth={st['hybrid_depth']}")
+    if st["ragged_pages"]:
+        parts.append(f"ragged pages={st['ragged_pages']} occ={st['ragged_occupancy_pct']}%")
+    if st["agg_hash_batches"]:
+        parts.append(f"agg_hash_batches={st['agg_hash_batches']}")
+    if st["agg_dense_batches"]:
+        parts.append(f"agg_dense_batches={st['agg_dense_batches']}")
+    if st["chunk_fallbacks"]:
+        parts.append(f"chunk_fallbacks={st['chunk_fallbacks']}")
+    if pool.revocations:
+        parts.append(f"revocations={pool.revocations}")
+    if pool.over_frees:
+        parts.append(f"over_frees={pool.over_frees}")
+    if not parts:
+        return ""
+    parts.append(f"pool peak {pool.peak:,}B")
+    return "\n-- memory: " + ", ".join(parts)
 
 
 def _opt_f64(values, device) -> Block:
@@ -173,16 +206,19 @@ class _NumberedTable:
         return self.base.column_stats(table, column)
 
 
-# the session properties this package's single-device executor reads; the
-# others (broadcast_threshold, batch_rows, memory_budget, query_priority)
-# are accepted and shown by SHOW SESSION, and read by the JAX package's
-# mesh and streaming executors and admission control, not ported
-_ENGINE_PROPERTIES = ("pallas_groupby", "dynamic_filtering", "plan_cache", "result_cache")
+# the session properties this package's executors read; the others
+# (broadcast_threshold, query_priority) are accepted and shown by SHOW
+# SESSION, and read by the JAX package's mesh and admission control, not
+# ported
+_ENGINE_PROPERTIES = ("pallas_groupby", "dynamic_filtering", "plan_cache", "result_cache",
+                      "streaming", "batch_rows", "memory_budget")
 
 
 class Session:
     """One device's SQL session. `pallas_groupby` None means on, on every
-    device."""
+    device. With `streaming`, queries run through the streaming executor
+    (exec/stream.py) in batches of `batch_rows` under `memory_budget`
+    device bytes (None: no budget)."""
 
     def __init__(
         self,
@@ -194,9 +230,15 @@ class Session:
         dynamic_filtering: bool = True,
         plan_cache: bool = True,
         result_cache: bool = True,
+        streaming: bool = False,
+        batch_rows: int = 1 << 20,
+        memory_budget: Optional[int] = None,
     ):
         self.catalog = catalog
         self.device = resolve_device(device)
+        self.streaming = bool(streaming)
+        self.batch_rows = int(batch_rows)
+        self.memory_budget = memory_budget
         self.access_control = access_control
         self.user = user
         self.pallas_groupby = True if pallas_groupby is None else bool(pallas_groupby)
@@ -214,9 +256,19 @@ class Session:
         self._txn = None
         self._txn_base = None
 
-    def _new_executor(self, collector=None) -> Executor:
-        ex = Executor(self.catalog, device=self.device, collector=collector,
-                      pallas_groupby=self.pallas_groupby)
+    def _new_executor(self, collector=None):
+        """The engine the session runs: the streaming executor when the
+        session streams, the materializing one otherwise."""
+        if self.streaming:
+            from .exec.stream import StreamingExecutor
+
+            ex = StreamingExecutor(self.catalog, device=self.device,
+                                   batch_rows=self.batch_rows,
+                                   memory_budget=self.memory_budget, collector=collector,
+                                   pallas_groupby=self.pallas_groupby)
+        else:
+            ex = Executor(self.catalog, device=self.device, collector=collector,
+                          pallas_groupby=self.pallas_groupby)
         ex.dynamic_filtering = self.dynamic_filtering
         return ex
 
@@ -254,6 +306,9 @@ class Session:
                 dynamic_filtering=engine.get("dynamic_filtering", self.dynamic_filtering),
                 plan_cache=engine.get("plan_cache", self.plan_cache),
                 result_cache=engine.get("result_cache", self.result_cache),
+                streaming=engine.get("streaming", self.streaming),
+                batch_rows=engine.get("batch_rows", self.batch_rows),
+                memory_budget=engine.get("memory_budget", self.memory_budget),
             )
             # statement-layer state is session-wide, not per-override
             derived.views = self.views
@@ -282,7 +337,8 @@ class Session:
         """Execution-engine identity, part of the RESULT cache key: two
         sessions only share result pages when they would execute the same
         way on the same device."""
-        return (str(self.device), self.pallas_groupby, self.dynamic_filtering)
+        return (str(self.device), self.pallas_groupby, self.dynamic_filtering, self.streaming,
+                self.batch_rows, self.memory_budget)
 
     def _plan_query_uncached(self, ast: t.Query) -> N.PlanNode:
         planner = Planner(self.catalog, views=self.views)
@@ -1091,10 +1147,14 @@ class Session:
 
         collector = StatsCollector()
         ex = self._new_executor(collector)
+        t0 = time.perf_counter()
         ex.run(node)
+        run_s = time.perf_counter() - t0
         collector.resolve()
         tree = N.plan_tree_str(node, collector=collector)
-        total_ms = collector.total_wall_s() * 1e3
+        # the streaming executor records each operator once per batch and
+        # each sink inclusive of its input: the run's own wall is the total
+        total_ms = (run_s if self.streaming else collector.total_wall_s()) * 1e3
         peak = collector.peak_bytes / (1024 * 1024)
         dyn_txt = ""
         snap = ex.dyn_ctx.snapshot()
@@ -1104,11 +1164,12 @@ class Session:
             pre_p = sum(snap["preprobe_pruned"].values())
             dyn_txt = (f"\n-- dynamic filters: {filters}; rows_pruned="
                        f"{scan_p + pre_p:,} (scan {scan_p:,}, pre-probe {pre_p:,})")
+        mem_txt = memory_line(ex) if self.streaming else ""
         # serving-cache counters: EXPLAIN ANALYZE itself always
         # re-executes, so these are the process-wide counters the
         # profiled query runs alongside
         cache_txt = "\n-- caches: " + qcache.format_summary(qcache.snapshot_all())
-        return (f"{tree}{dyn_txt}{cache_txt}\n"
+        return (f"{tree}{dyn_txt}{mem_txt}{cache_txt}\n"
                 f"-- total {total_ms:,.1f}ms, peak live output {peak:,.2f}MB")
 
     def explain_analyze(self, sql: str) -> str:

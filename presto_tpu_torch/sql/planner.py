@@ -3176,6 +3176,7 @@ class SubqueryPlanner:
             (ir.ColumnRef(name, typ),),
             anti=anti,
             mark=mark,
+            null_aware=anti,
         )
 
 

@@ -9,7 +9,9 @@ chip_smoke.py (windows, set operations, ROLLUP, moments, TABLESAMPLE), the
 103 TPC-DS texts and the scalar function families of chip_smoke.py's
 FUNCTION_SQL (both over TPC-DS SF 0.01), the hand-coded pipelines and the
 statement sequence of chip_smoke.py's `statements` path (TPC-H SF 0.01) on
-"cuda" against the same on "cpu".
+"cuda" against the same on "cpu"; and the streaming executor at a budget
+that offloads (Q3's hybrid hash join, a NOT IN through the partitioned
+semi join) against the materializing session on the card.
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -361,3 +363,36 @@ def test_statements_on_card_equal_cpu(cuda):
         for g, w in zip(step["statements"], want[label]["statements"]):
             for key in ("rows", "plan_hits", "result_hits"):
                 assert chip_smoke._same_result(g[key], w[key]), (label, g["sql"], key)
+
+
+STREAM_SQL = {
+    "q3": QUERIES[3],
+    "not_in": "select count(*), sum(o_totalprice) from orders where o_custkey not in "
+              "(select c_custkey from customer where c_acctbal > 0)",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STREAM_SQL))
+def test_streaming_on_card_equals_materializing(cuda, sessions_sf001, name):
+    """The streaming executor on the card (exec/stream.py) at a budget
+    that offloads: Q3 through the hybrid hash join, a NOT IN whose source
+    exceeds the budget through the partitioned semi join, each equal to
+    the materializing session on the card, with pool.peak within the
+    budget and the join kernels launched; no spill file left."""
+    from presto_tpu_torch.exec import spillspace
+
+    card, _cpu = sessions_sf001
+    budget = 64 << 10
+    stream = Session(card.catalog, device="cuda", streaming=True, batch_rows=8192,
+                     memory_budget=budget, result_cache=False)
+    before = jk.insert_launches, jk.probe_launches
+    got = stream.query(STREAM_SQL[name]).rows()
+    want = card.query(STREAM_SQL[name]).rows()
+    assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
+    ex = stream.executor
+    assert ex.pool.peak <= budget
+    tag = "hybrid_hash_join" if name == "q3" else "partitioned_semijoin"
+    assert tag in ex.spill_events, ex.spill_events
+    assert jk.insert_launches > before[0] and jk.probe_launches > before[1]
+    assert spillspace.all_active_bytes() == 0

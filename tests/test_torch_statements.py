@@ -187,6 +187,9 @@ def test_delete_survives_empty_result(empty):
     ("exists (select 1 from u where u.b = t.a)", "a in (1, 2, 0, 9)", [(None,), (3,), (4,)]),
     ("a in (select b from u) and a > 1", "a in (1, 2, 0, 9) and a > 1",
      [(None,), (1,), (3,), (4,)]),
+    # NOT IN is three-valued: NULL NOT IN a non-empty set is NULL, so the
+    # NULL row stays
+    ("a not in (select b from u)", "a not in (1, 2, 0, 9)", [(None,), (1,), (2,)]),
 ])
 def test_delete_with_subquery(where, same, left):
     """DELETE whose predicate holds an IN or EXISTS subquery removes the
@@ -334,9 +337,18 @@ def test_execute_respects_session_overrides(pair):
 
 @pytest.mark.parametrize("prop", ["streaming", "matmul_groupby"])
 def test_unported_properties_raise(pair, prop):
-    """The streaming executor and the matmul group-by are not ported."""
-    with pytest.raises(NotPortedError, match=f"SET SESSION {prop} = true"):
-        pair.port.query(f"set session {prop} = true")
+    """The matmul group-by is not ported and raises; the streaming executor
+    is (exec/stream.py): turning it on runs the query through it, with the
+    JAX package's rows."""
+    if prop == "streaming":
+        pair.port.query("set session streaming = true")
+        want = pair.ref.query("select count(*) from t").rows()
+        assert pair.port.query("select count(*) from t").rows() == want == [(3,)]
+        derived = pair.port.with_properties(pair.port._session_overrides)
+        assert type(derived.executor).__name__ == "StreamingExecutor"
+    else:
+        with pytest.raises(NotPortedError, match=f"SET SESSION {prop} = true"):
+            pair.port.query(f"set session {prop} = true")
     pair.port.query(f"set session {prop} = false")
     assert pair.port.query("select count(*) from t").rows() == [(3,)]
 
