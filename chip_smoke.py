@@ -52,6 +52,30 @@ ChunkedTpchCatalog(10) (batches generated on the card) under 512 MiB,
 each held to numpy over the same columns generated on the host (in a
 process spawned at the start), with the card's peak allocation below the
 bytes of the lineitem columns it reads. Both launch kernels 1-3.
+Then `files22`, the storage connectors on the card: the eight tables of
+the TPC-H SF 1 catalog copied to the host once and written into a Hive
+warehouse (Parquet; orders and lineitem bucketed on the order key into 8
+buckets, lineitem_by_mode partitioned by l_shipmode into 7), with its
+bytes on disk and write seconds; a catalog directory (hive, blackhole,
+sqlite with nation and region) loaded by `load_catalog_store(dir,
+device="cuda")`; after `USE hive.default` the 22 texts and the Q20
+variant, each planned once on cold column stats (first plan ms) then run
+cold and warm, held to the `tpch22` card rows in order, with launches of
+kernels 1-3 (all three required); a cross-catalog join of
+sqlite.default.nation and hive.default.customer against the TPC-H
+session; on a Session over the HiveCatalog itself, a streamed Q12 with
+`l_shipmode = 'MAIL'` over lineitem_by_mode (EXPLAIN ANALYZE `files: 1
+read, 6 pruned`) and a streamed orders-lineitem join grouped over both
+sides that takes `grouped_bucket_join` under 16 MiB (below the card
+bytes of the whole orders build, above its largest bucket's, both
+measured), both against the TPC-H session (whose rows are computed
+before the path's counts are set to 0), and Q1 and Q6 timed with scans
+that read only their columns against whole pages; a CTAS of Q1 into the
+warehouse read back through the store after USE, an INSERT of lineitem
+into a blackhole table (6,000,859 rows reported); lineitem as
+RCFile (Q1, Q6), customer, orders and lineitem as ORC and as shard-store
+shards (Q3; organize() keeps the rows and table_version), customer as
+CSV (Q10's customers' columns against the TPC-H session).
 Then the TPC-DS paths, over `TpcdsCatalog(1.0)` on the card: `tpcds`, the
 103 TPC-DS texts, each cold then twice warm, each run held against the
 same text through the port on the CPU (computed meanwhile by five spawned
@@ -1532,6 +1556,373 @@ def not_in_path(sess, cat, runs=2):
                          "cold_ms": cold, "warm_ms": warm}
         print(f"phase3 not_in {label}", json.dumps(report[label]), flush=True)
     return report
+
+
+# -- phase 3: the storage connectors (`files22`) -----------------------------
+
+FILES_BUCKETS = 8  # orders and lineitem bucketed on their order key
+# the grouped bucket join's device budget: below orders' whole build
+# (o_orderkey, o_orderpriority, o_totalprice on the card, about 30 MB at
+# SF 1) and above its largest bucket's (about 1/8 of it); files_hive_checks
+# measures both
+FILES_JOIN_BUDGET = 16 << 20
+FILES_JOIN_BUILD = ("o_orderkey", "o_orderpriority", "o_totalprice")
+FILES_JOIN_SQL = ("select o_orderpriority, l_returnflag, count(*) as n, sum(l_quantity) as q, "
+                  "sum(o_totalprice) as p from orders, lineitem where o_orderkey = l_orderkey "
+                  "group by o_orderpriority, l_returnflag order by o_orderpriority, l_returnflag")
+CROSS_SQL = ("select n_name, count(*) as n, sum(c_acctbal) as b from {nation}, {customer} "
+             "where n_nationkey = c_nationkey group by n_name order by n_name")
+CSV_SQL = ("select c_custkey, c_name, {acctbal}, c_address, c_phone, c_comment from customer "
+           "where c_custkey in ({keys}) order by c_custkey")
+
+
+def files22_expected(sess):
+    """The TPC-H session's rows for the `files22` checks that have no
+    tpch22 text: the Q12 variant, the orders-lineitem join, the
+    cross-catalog join and the CSV customers. main computes them before
+    it sets the counts to 0, so that files22's launches come from queries
+    over files only."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+
+    keys = ", ".join(str(r[0]) for r in TPCH22_ROWS["Q10"])
+    return {"q12_mail": sess.query(q12_mail(QUERIES[12])).rows(),
+            "join": sess.query(FILES_JOIN_SQL).rows(),
+            "cross": sess.query(CROSS_SQL.format(nation="nation", customer="customer")).rows(),
+            "csv": sess.query(CSV_SQL.format(acctbal="cast(c_acctbal as double)",
+                                             keys=keys)).rows()}
+
+
+def q12_mail(text):
+    """TPC-H Q12 with `l_shipmode = 'MAIL'` in place of its IN list (the
+    Hive connector prunes partitions on eq/lt/le/gt/ge hints, not on `in`,
+    as in the JAX package)."""
+    assert "l_shipmode in ('MAIL', 'SHIP')" in text
+    return text.replace("l_shipmode in ('MAIL', 'SHIP')", "l_shipmode = 'MAIL'")
+
+
+def _dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def write_warehouse(root, host, device):
+    """The eight tables into a Hive warehouse under `root` (Parquet),
+    orders and lineitem bucketed on their order key into FILES_BUCKETS
+    buckets, plus lineitem_by_mode partitioned by l_shipmode. Returns
+    (the HiveCatalog, write seconds)."""
+    from presto_tpu_torch.connectors.hive import HiveCatalog
+
+    t0 = time.perf_counter()
+    wh = HiveCatalog(root, device=device)
+    keys = {"orders": "o_orderkey", "lineitem": "l_orderkey"}
+    for name, page in host.items():
+        schema = {n: b.type for n, b in zip(page.names, page.blocks)}
+        bucketed = [keys[name]] if name in keys else []
+        wh.create_partitioned_table(name, schema, bucketed_by=bucketed,
+                                    bucket_count=FILES_BUCKETS if bucketed else 0)
+        wh.append(name, page)
+    li = host["lineitem"]
+    wh.create_partitioned_table("lineitem_by_mode", {n: b.type for n, b in
+                                                     zip(li.names, li.blocks)},
+                                partitioned_by=["l_shipmode"])
+    wh.append("lineitem_by_mode", li)
+    return wh, time.perf_counter() - t0
+
+
+def write_catalog_dir(cdir, warehouse, host):
+    """hive.properties, blackhole.properties and sqlite.properties under
+    `cdir`; the SQLite file holds nation and region."""
+    import os
+    import sqlite3
+
+    db = os.path.join(cdir, "federated.db")
+    conn = sqlite3.connect(db)
+    for name in ("nation", "region"):
+        page = host[name]
+        decl = ", ".join(f"{c} {'INTEGER' if str(b.type) == 'bigint' else 'TEXT'}"
+                         for c, b in zip(page.names, page.blocks))
+        conn.execute(f"create table {name} ({decl})")
+        conn.executemany(f"insert into {name} values ({', '.join('?' * len(page.names))})",
+                         page.to_pylist())
+    conn.commit()
+    conn.close()
+    for name, props in (("hive", f"hive.warehouse-dir={warehouse}"), ("blackhole", ""),
+                        ("sqlite", f"connection-url=jdbc:sqlite:{db}")):
+        with open(os.path.join(cdir, f"{name}.properties"), "w") as f:
+            f.write(f"connector.name={name}\n{props}\n")
+
+
+def files_store_runs(sess, runs):
+    """The 22 texts and the Q20 variant through the catalog store after
+    USE hive.default, each held to TPCH22_ROWS in order. Returns {label:
+    report} (first plan ms: Session.plan on cold column stats)."""
+    report = {}
+    for label, text in tpch22_texts().items():
+        t = time.perf_counter()
+        sess.plan(text)
+        plan_ms = (time.perf_counter() - t) * 1e3
+        want = TPCH22_ROWS[label]
+        cold, warm, launches, rows = _timed_runs(
+            lambda: sess.query(text).rows(), runs, lambda got: row_diff(got, want),
+            f"files22 {label} against tpch22")
+        report[label] = {"result_rows": len(rows), "launches": launches, "first_plan_ms": plan_ms,
+                         "cold_ms": cold, "warm_ms": warm}
+        print(f"phase3 files22 {label}", json.dumps(report[label]), flush=True)
+    return report
+
+
+def files_hive_checks(hive, want, device):
+    """On a Session over the HiveCatalog itself: the Q12 variant over
+    lineitem_by_mode streamed (rows equal to want["q12_mail"]; EXPLAIN
+    ANALYZE prunes 6 of 7 partitions), and the streamed orders-lineitem
+    join that takes the grouped bucket join under FILES_JOIN_BUDGET (rows
+    equal to want["join"]), the budget held between the measured card
+    bytes of orders' build columns in its largest bucket and in whole."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+    from presto_tpu_torch.exec.stats import page_device_bytes
+    from presto_tpu_torch.session import Session
+
+    out = {}
+    over = q12_mail(QUERIES[12]).replace("lineitem", "lineitem_by_mode")
+    stream = lambda **kw: Session(hive, device=device, streaming=True,  # noqa: E731
+                                  batch_rows=STREAM_BATCH, result_cache=False, **kw)
+    t = time.perf_counter()
+    diff = row_diff(stream().query(over).rows(), want["q12_mail"])
+    out["q12_mail_ms"] = (time.perf_counter() - t) * 1e3
+    if diff is not None or not want["q12_mail"]:
+        raise AssertionError(f"files22 Q12 over lineitem_by_mode: {diff}")
+    plan = stream().explain_analyze(over)
+    line = [ln.strip() for ln in plan.splitlines() if "files:" in ln]
+    if not any("files: 1 read, 6 pruned" in ln for ln in line):
+        raise AssertionError(f"files22 Q12: no 'files: 1 read, 6 pruned' in\n{plan}")
+    out["q12_pruning"] = line
+    js = stream(memory_budget=FILES_JOIN_BUDGET)
+    t = time.perf_counter()
+    diff = row_diff(js.query(FILES_JOIN_SQL).rows(), want["join"])
+    out["grouped_join_ms"] = (time.perf_counter() - t) * 1e3
+    if diff is not None:
+        raise AssertionError(f"files22 grouped bucket join: {diff}")
+    cols = list(FILES_JOIN_BUILD)
+    whole = page_device_bytes(hive.page_columns("orders", cols))
+    bucket = max(sum(page_device_bytes(hive.scan("orders", lo, hi, columns=cols))
+                     for lo, hi in hive.bucket_row_ranges("orders", b))
+                 for b in range(FILES_BUCKETS))
+    ladder = _ladder(js.executor)
+    if "grouped_bucket_join" not in js.executor.spill_events or not (
+            bucket < FILES_JOIN_BUDGET < whole) or ladder["pool_peak"] > FILES_JOIN_BUDGET:
+        raise AssertionError(f"files22 grouped bucket join: {js.executor.spill_events} "
+                             f"bucket {bucket} budget {FILES_JOIN_BUDGET} whole {whole} "
+                             f"peak {ladder['pool_peak']}")
+    out["grouped_join"] = {"budget": FILES_JOIN_BUDGET, "whole_build_bytes": whole,
+                           "largest_bucket_build_bytes": bucket, **ladder}
+    return out
+
+
+def files_scan_columns(hive, device, runs=2):
+    """Q1 and Q6 on a Session over the HiveCatalog, scans reading only
+    their columns (page_columns) against every column (page()), `runs`
+    times each, rows held to TPCH22_ROWS. Returns {q: {mode: cold and warm
+    ms}}."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+    from presto_tpu_torch.connectors.jdbc import MultiCatalog
+    from presto_tpu_torch.session import Session
+
+    class WholePages(MultiCatalog):
+        def page_columns(self, table, columns):
+            return self.page(table)
+
+    sessions = {"columns": Session(hive, device=device, result_cache=False),
+                "whole": Session(WholePages([hive]), device=device, result_cache=False)}
+    out = {}
+    for q in (1, 6):
+        out[f"Q{q}"] = {}
+        for mode, s in sessions.items():
+            cold, warm, _, _ = _timed_runs(
+                lambda: s.query(QUERIES[q]).rows(), runs,
+                lambda got: row_diff(got, TPCH22_ROWS[f"Q{q}"]), f"files22 Q{q} {mode}")
+            out[f"Q{q}"][mode] = {"cold_ms": cold, "warm_ms": warm}
+    print("phase3 files22 scan columns", json.dumps(out), flush=True)
+    return out
+
+
+def files_writes(store_sess, hive, device):
+    """CTAS of Q1 on a Session over the warehouse, read back through the
+    store after USE hive.default; an INSERT of lineitem into a blackhole
+    table on a session whose writes go to the store's blackhole catalog
+    and whose reads resolve in the warehouse, which must report every row
+    (the store itself takes no writes)."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+    from presto_tpu_torch.connectors.jdbc import MultiCatalog
+    from presto_tpu_torch.session import Session
+
+    class SinkOverWarehouse(MultiCatalog):
+        def __init__(self, sink, source):
+            super().__init__([sink, source])
+            self.wrapped = sink
+
+        def create_table_from_page(self, table, page):
+            self.wrapped.create_table_from_page(table, page)
+
+        def append(self, table, page):
+            self.wrapped.append(table, page)
+
+    out = {}
+    t = time.perf_counter()
+    Session(hive, device=device, result_cache=False).query("create table q1_out as "
+                                                           + QUERIES[1])
+    store_sess.query("use hive.default")
+    back = store_sess.query("select * from q1_out").rows()
+    out["ctas_ms"] = (time.perf_counter() - t) * 1e3
+    diff = row_diff(back, TPCH22_ROWS["Q1"])
+    if diff is not None:
+        raise AssertionError(f"files22 CTAS q1_out read back: {diff}")
+    n = hive.exact_row_count("lineitem")
+    sink = store_sess.catalog.catalogs["blackhole"]
+    bs = Session(SinkOverWarehouse(sink, hive), device=device, result_cache=False)
+    bs.query("create table sink as select * from lineitem limit 0")
+    t = time.perf_counter()
+    got = bs.query("insert into sink select * from lineitem").rows()
+    out["blackhole_insert_ms"] = (time.perf_counter() - t) * 1e3
+    written = sink.rows_written["sink"]
+    if got != [(n,)] or written != n:
+        raise AssertionError(f"files22 blackhole insert reported {got}, wrote {written}, not {n}")
+    out["blackhole_rows"] = written
+    return out
+
+
+def files_formats(tmp, host, want_csv, device):
+    """RCFile (lineitem: Q1 and Q6), ORC and the shard store (customer,
+    orders, lineitem: Q3; organize() keeps the rows and table_version),
+    and CSV (customer: Q10's customer columns, against `want_csv`) against
+    the TPC-H rows."""
+    import csv
+    import os
+
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+    from presto_tpu_torch.connectors.localfile import LocalFileCatalog
+    from presto_tpu_torch.connectors.orc import OrcCatalog
+    from presto_tpu_torch.connectors.rcfile import RcFileCatalog
+    from presto_tpu_torch.connectors.shardstore import ShardStoreCatalog
+    from presto_tpu_torch.page import Page
+    from presto_tpu_torch.session import Session
+
+    out = {}
+
+    def check(label, cat, texts):
+        s = Session(cat, device=device, result_cache=False)
+        for q, key in texts:
+            t = time.perf_counter()
+            diff = row_diff(s.query(QUERIES[q]).rows(), TPCH22_ROWS[key])
+            out[f"{label}_q{q}_ms"] = (time.perf_counter() - t) * 1e3
+            if diff is not None:
+                raise AssertionError(f"files22 {label} Q{q}: {diff}")
+
+    for label, make in (("rcfile", lambda d: RcFileCatalog({}, directory=d, device=device)),
+                        ("orc", lambda d: OrcCatalog({}, directory=d, device=device))):
+        d = os.path.join(tmp, label)
+        os.makedirs(d)
+        cat = make(d)
+        t = time.perf_counter()
+        names = ("lineitem",) if label == "rcfile" else ("customer", "orders", "lineitem")
+        for name in names:
+            cat.create_table_from_page(name, host[name])
+        out[f"{label}_write_s"] = time.perf_counter() - t
+        out[f"{label}_bytes"] = _dir_bytes(d)
+        check(label, cat, ((1, "Q1"), (6, "Q6")) if label == "rcfile" else ((3, "Q3"),))
+    ss = ShardStoreCatalog(os.path.join(tmp, "shards"), device=device)
+    t = time.perf_counter()
+    for name in ("customer", "orders", "lineitem"):
+        page = host[name]
+        ss.create_table(name, {n: b.type for n, b in zip(page.names, page.blocks)})
+        n = int(page.count)
+        step = -(-n // 6)  # six shards a table: organize() has runs to merge
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            ss.append(name, Page(tuple(b.take_rows(slice(lo, hi)) for b in page.blocks),
+                                 page.names, page.count.new_tensor(hi - lo)))
+    out["shardstore_write_s"] = time.perf_counter() - t
+    check("shardstore", ss, ((3, "Q3"),))
+    versions = {name: ss.table_version(name) for name in ("customer", "orders", "lineitem")}
+    shards = {name: ss.shard_count(name) for name in versions}
+    out["organize"] = ss.organize()
+    after = {name: ss.shard_count(name) for name in versions}
+    if not out["organize"] or any(ss.table_version(n) != v for n, v in versions.items()):
+        raise AssertionError(f"files22 organize: {out['organize']} {shards} -> {after}")
+    out["shards"] = {"before": shards, "after": after}
+    check("shardstore_organized", ss, ((3, "Q3"),))
+    d = os.path.join(tmp, "csv")
+    os.makedirs(d)
+    cust = host["customer"]
+    cols = [[None if v is None else str(v) for v in col] for col in zip(*cust.to_pylist())]
+    with open(os.path.join(d, "customer.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(cust.names)
+        w.writerows(zip(*cols))
+    keys = ", ".join(str(r[0]) for r in TPCH22_ROWS["Q10"])
+    got = Session(LocalFileCatalog(d, device=device), device=device, result_cache=False).query(
+        CSV_SQL.format(acctbal="c_acctbal", keys=keys)).rows()
+    diff = row_diff(got, want_csv)
+    if diff is not None or len(want_csv) != len(TPCH22_ROWS["Q10"]):
+        raise AssertionError(f"files22 CSV customer: {diff}")
+    return out
+
+
+def files22_path(cat, want, runs=2, device="cuda"):
+    """The storage connectors on the card (`files22`): the eight tables of
+    `cat` copied to the host once and written into a Hive warehouse; a
+    catalog directory (hive, blackhole, sqlite) loaded with
+    load_catalog_store on `device`; after USE hive.default the 22 texts and
+    the Q20 variant, `runs` times each, held to TPCH22_ROWS in order; a
+    cross-catalog join (sqlite nation x hive customer) against
+    want["cross"]; the Hive-session checks (files_hive_checks); Q1 and Q6
+    with and without page_columns (files_scan_columns); the writes
+    (files_writes); and the other formats (files_formats). `want` is
+    files22_expected's: no query here runs over generated tables.
+    Returns (report, {check: result})."""
+    import os
+    import tempfile
+
+    import torch
+
+    from presto_tpu_torch.server.catalog_store import load_catalog_store
+    from presto_tpu_torch.session import Session
+
+    t0 = time.perf_counter()
+    host = {name: cat.page(name).to("cpu") for name in TPCH_TABLES + ("partsupp",)}
+    copy_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        wh_dir, cdir = os.path.join(tmp, "warehouse"), os.path.join(tmp, "catalog")
+        os.makedirs(cdir)
+        hive, write_s = write_warehouse(wh_dir, host, device)
+        write_catalog_dir(cdir, wh_dir, host)
+        parts = sorted(e.partition[0][1] for e in hive._manifest["lineitem_by_mode"])
+        info = {"copy_to_host_s": copy_s, "write_s": write_s, "bytes_on_disk": _dir_bytes(wh_dir),
+                "files": {n: len(hive._manifest[n]) for n in hive.table_names()},
+                "lineitem_by_mode_partitions": parts}
+        print("phase3 files22 warehouse", json.dumps(info), flush=True)
+        if len(parts) != 7 or info["files"]["lineitem"] != FILES_BUCKETS:
+            raise AssertionError(f"files22 warehouse layout: {info}")
+        store = load_catalog_store(cdir, device=device)
+        for name, c in store.catalogs.items():
+            if getattr(c, "device", None) != torch.device(device):
+                raise AssertionError(f"files22: catalog {name} is on {c.device}")
+        store_sess = Session(store, device=device, result_cache=False)
+        store_sess.query("use hive.default")
+        report = files_store_runs(store_sess, runs)
+        checks = {"warehouse": info}
+        got = store_sess.query(CROSS_SQL.format(nation="sqlite.default.nation",
+                                                customer="hive.default.customer")).rows()
+        diff = row_diff(got, want["cross"])
+        if diff is not None or len(got) != 25:
+            raise AssertionError(f"files22 cross-catalog join: {diff}")
+        checks["cross_catalog_rows"] = len(got)
+        checks.update(files_hive_checks(store.catalogs["hive"], want, device))
+        checks["scan_columns"] = files_scan_columns(store.catalogs["hive"], device)
+        checks.update(files_writes(store_sess, store.catalogs["hive"], device))
+        checks.update(files_formats(tmp, host, want["csv"], device))
+    print("phase3 files22 checks", json.dumps(checks, default=str), flush=True)
+    return report, checks
 
 
 # -- phase 3: TPC-DS at SF 1, and the scalar function library ---------------
@@ -3342,6 +3733,21 @@ def main() -> int:
         for k in ("groupby_partials", "join_insert", "join_probe"):
             if path_counts[path][k] < 1:
                 raise AssertionError(f"the {path} path did not launch {k}")
+
+    # phase 3, the storage connectors: the TPC-H tables written as files
+    # (a Hive warehouse through the catalog store, RCFile, ORC, the shard
+    # store, CSV), the 23 texts held to tpch22's card rows; the counts at 0
+    # just before it
+    want = files22_expected(sess)
+    t0 = time.perf_counter()
+    _zero_counts()
+    files22_path(cat, want)
+    path_counts["files22"] = _counts()
+    print(f"phase3 files22 launches {json.dumps(path_counts['files22'])} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for k in ("groupby_partials", "join_insert", "join_probe"):
+        if path_counts["files22"][k] < 1:
+            raise AssertionError(f"the files22 path did not launch {k}")
 
     # phase 3, TPC-DS at SF 1: the 103 texts on the card, then the scalar
     # function library against the CPU over the same host tables, the

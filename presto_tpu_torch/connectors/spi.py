@@ -22,6 +22,10 @@ Data methods (executor-facing, reference ConnectorPageSource):
       driver otherwise detects end-of-table by a short batch, which a
       pruned batch would fake — without exact_row_count the engine drops
       the pruning hint entirely.
+  page_columns(table, columns) -> Page     # optional: a page holding at
+      least `columns`, decoding only those (file connectors). Callers go
+      through read_columns(), which serves page() where a catalog has no
+      page_columns; routing catalogs forward it to their members.
   scan(table, start, stop, pad_to=None, columns=None, predicate=None)
       -> Page                              # one batched split; MUST clamp
       stop to the true row count and may over-deliver rows that fail
@@ -157,6 +161,14 @@ class Connector(Catalog):
                 blk = _pad_block(blk, pad_to)
             blocks.append(blk)
         return Page.from_blocks(blocks, names, count=count, device=src.device)
+
+
+def read_columns(catalog, table: str, columns: List[str]) -> Page:
+    """`table` with at least `columns`: the catalog's page_columns where it
+    has one (the file connectors decode only those columns), else its
+    whole page()."""
+    fn = getattr(catalog, "page_columns", None)
+    return catalog.page(table) if fn is None else fn(table, columns)
 
 
 class WriteError(RuntimeError):

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import types as T
+from ..connectors.spi import read_columns
 from ..expr.compiler import evaluate, project_page
 from ..expr.ir import Call, ColumnRef
 from ..ops.aggregate import global_aggregate, grouped_aggregate_sorted
@@ -219,7 +220,11 @@ class Executor:
         return Page.from_blocks((blk,), (node.channel,), 1)
 
     def _exec_tablescan(self, node: N.TableScan) -> Page:
-        src = self.catalog.page(node.table).to(self.device)
+        # file connectors decode only the scanned columns (page_columns);
+        # the others serve their whole cached page
+        cols = list(dict.fromkeys(col for _ch, col, _typ in node.columns))
+        src = (read_columns(self.catalog, node.table, cols) if cols
+               else self.catalog.page(node.table)).to(self.device)
         blocks = tuple(src.block(col) for _ch, col, _typ in node.columns)
         names = tuple(ch for ch, _col, _typ in node.columns)
         page = Page(blocks, names, src.count)

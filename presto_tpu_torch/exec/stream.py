@@ -504,14 +504,27 @@ class StreamingExecutor:
             # and pruning may shorten any batch: drop the optional hints
             predicate = None
         start = 0
+        read_total = skipped_total = 0
         while True:
             src = scan(node.table, start, start + B, pad_to=B, columns=cols,
                        predicate=predicate)
+            # the connector's pruning counters are per scan CALL: keep the
+            # highest over the batches — exact for partition pruning (every
+            # call sees the whole file set), a per-batch high-water mark for
+            # stripe and shard pruning (each call sees only its range)
+            skipped_total = max(skipped_total,
+                                getattr(self.catalog, "last_scan_files_skipped", 0) or 0)
+            read_total = max(read_total, getattr(self.catalog, "last_scan_files_read", 0) or 0)
             n = int(src.count) if total is None else max(min(total - start, B), 0)
             if n > 0 or start == 0:
                 yield self._scan_out(node, self._rename_scan(node, src))
             start += B
             if (start >= total) if total is not None else (n < B):
+                # connector pruning in EXPLAIN ANALYZE (reference: the hive
+                # split source reports the partitions it skipped)
+                if skipped_total and self.collector is not None:
+                    self.collector.stats_for(node).detail = (
+                        f"files: {read_total} read, {skipped_total} pruned")
                 return
 
     def _rename_scan(self, node: N.TableScan, src: Page) -> Page:

@@ -20,7 +20,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..connectors.spi import WritableConnector, WriteError
+from ..connectors.spi import WritableConnector, WriteError, read_columns
 from ..page import Page
 
 
@@ -103,6 +103,11 @@ class TransactionCatalog(WritableConnector):
 
     def page(self, table: str) -> Page:
         return self._materialize(table)
+
+    def page_columns(self, table: str, columns: List[str]) -> Page:
+        if table in self._staged:
+            return self._materialize(table)
+        return read_columns(self.base, table, columns)
 
     def scan(self, table: str, start: int, stop: int, pad_to=None,
              columns=None, predicate=None):

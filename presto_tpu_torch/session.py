@@ -13,8 +13,10 @@ TABLE, GRANT/REVOKE under security.py, SHOW and DESCRIBE), EXPLAIN,
 EXPLAIN (TYPE VALIDATE | IO) and EXPLAIN ANALYZE (exec/stats.py), and the
 streaming executor under a device budget (exec/stream.py: `streaming`,
 `batch_rows`, `memory_budget`, as arguments or SET SESSION properties).
-Not ported, raising NotPortedError: materialized views, USE of a
-catalog, EXPLAIN (TYPE DISTRIBUTED), and the matmul group-by property;
+USE catalog.schema over a CatalogStore (server/catalog_store.py) makes
+the used catalog the first resolver of bare names. Not ported, raising
+NotPortedError: materialized views, EXPLAIN (TYPE DISTRIBUTED), and the
+matmul group-by property;
 the JAX package's mesh, observability spans and history feedback have no
 counterpart here.
 """
@@ -196,6 +198,11 @@ class _NumberedTable:
 
     def page(self, table: str) -> Page:
         return self.numbered if table == self.table else self.base.page(table)
+
+    def page_columns(self, table: str, columns):
+        from .connectors.spi import read_columns
+
+        return self.numbered if table == self.table else read_columns(self.base, table, columns)
 
     def column_stats(self, table: str, column: str):
         if table == self.table and column == _ROW_NUMBER:
@@ -510,13 +517,26 @@ class Session:
                             t.DropMaterializedView)):
             raise NotPortedError(f"not ported yet: {type(ast).__name__} (matview/)")
         if isinstance(ast, t.Use):
-            # reference UseTask: switch the session's default schema
-            if ast.catalog is not None:
-                raise NotPortedError("not ported yet: USE catalog.schema "
-                                     "(server/catalog_store.py)")
-            if ast.schema not in self.schemas:
-                raise ValueError(f"schema {ast.schema!r} does not exist")
-            self.current_schema = ast.schema
+            # reference UseTask: switch the session's default catalog and
+            # schema. Over a CatalogStore the used catalog becomes the FIRST
+            # resolver of bare names (a per-session store; the loaded one is
+            # not changed)
+            from .server.catalog_store import CatalogStore
+
+            cat_name, schema = ast.catalog, ast.schema
+            if cat_name is None and isinstance(self.catalog, CatalogStore) \
+                    and schema in self.catalog.catalogs:
+                cat_name, schema = schema, "default"
+            if cat_name is not None:
+                if not isinstance(self.catalog, CatalogStore) or \
+                        cat_name not in self.catalog.catalogs:
+                    raise ValueError(f"catalog {cat_name!r} does not exist")
+                ordered = {cat_name: self.catalog.catalogs[cat_name]}
+                ordered.update(self.catalog.catalogs)
+                self._swap_catalog(CatalogStore(ordered))
+            elif schema not in self.schemas:
+                raise ValueError(f"schema {schema!r} does not exist")
+            self.current_schema = schema
             return self._row_count_result(0)
         if isinstance(ast, t.Analyze):
             # reference AnalyzeTask: derive every column's stats through

@@ -11,7 +11,9 @@ FUNCTION_SQL (both over TPC-DS SF 0.01), the hand-coded pipelines and the
 statement sequence of chip_smoke.py's `statements` path (TPC-H SF 0.01) on
 "cuda" against the same on "cpu"; and the streaming executor at a budget
 that offloads (Q3's hybrid hash join, a NOT IN through the partitioned
-semi join) against the materializing session on the card.
+semi join) against the materializing session on the card; and a bucketed
+Hive warehouse read on the card through the grouped bucket join against
+the same warehouse read on the CPU.
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -396,3 +398,33 @@ def test_streaming_on_card_equals_materializing(cuda, sessions_sf001, name):
     assert tag in ex.spill_events, ex.spill_events
     assert jk.insert_launches > before[0] and jk.probe_launches > before[1]
     assert spillspace.all_active_bytes() == 0
+
+
+@pytest.mark.cuda
+def test_grouped_bucket_join_over_hive_on_card_equals_cpu(cuda, sessions_sf001, tmp_path):
+    """A bucketed Hive warehouse (connectors/hive.py) at SF 0.01: orders
+    and lineitem bucketed on the order key, read on the card by a
+    streaming session that takes the grouped bucket join under a budget
+    below the whole orders build, equal to the same warehouse read on the
+    CPU, with the join kernels launched."""
+    from presto_tpu_torch.connectors.hive import HiveCatalog
+
+    card, _cpu = sessions_sf001
+    wh = HiveCatalog(str(tmp_path / "wh"), device="cuda")
+    for name, key in (("orders", "o_orderkey"), ("lineitem", "l_orderkey")):
+        page = card.catalog.page(name)
+        wh.create_partitioned_table(name, {n: b.type for n, b in zip(page.names, page.blocks)},
+                                    bucketed_by=[key], bucket_count=4)
+        wh.append(name, page)
+    budget = 256 << 10  # the whole orders build is 300,000 bytes, a bucket ~75,000
+    stream = Session(wh, device="cuda", streaming=True, batch_rows=8192, memory_budget=budget,
+                     result_cache=False)
+    before = jk.insert_launches, jk.probe_launches
+    got = stream.query(chip_smoke.FILES_JOIN_SQL).rows()
+    want = Session(HiveCatalog(wh.root, device="cpu"), device="cpu", streaming=True,
+                   batch_rows=8192, result_cache=False).query(chip_smoke.FILES_JOIN_SQL).rows()
+    assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
+    assert chip_smoke.row_diff(got, card.query(chip_smoke.FILES_JOIN_SQL).rows()) is None
+    assert "grouped_bucket_join" in stream.executor.spill_events
+    assert stream.executor.pool.peak <= budget
+    assert jk.insert_launches > before[0] and jk.probe_launches > before[1]

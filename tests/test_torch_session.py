@@ -1,8 +1,10 @@
 """End to end: TPC-H Q1 and Q6 at SF 0.01 through presto_tpu_torch.Session
 (device="cpu") give exactly presto_tpu.Session's rows (decimals exact), and
 the port's Q1 takes the dense kernel strategy. What the port's session
-still raises NotPortedError for: materialized views, EXPLAIN (TYPE
-DISTRIBUTED) and USE of a catalog."""
+still raises NotPortedError for: materialized views and EXPLAIN (TYPE
+DISTRIBUTED); USE catalog.schema runs over a CatalogStore, and a USE of
+a catalog the session does not have raises ValueError, as in the JAX
+package."""
 
 import pytest
 import torch
@@ -70,7 +72,15 @@ def test_session_device_and_unported_paths(sessions):
         port.query("create materialized view mv as select 1 x")
     with pytest.raises(NotPortedError, match="not ported yet: EXPLAIN \\(TYPE DISTRIBUTED\\)"):
         port.query("explain (type distributed) select 1")
-    with pytest.raises(NotPortedError, match="not ported yet: USE catalog.schema"):
+    # USE catalog.schema: a catalog the session lacks raises as in the JAX
+    # package; over a CatalogStore the used catalog resolves bare names
+    with pytest.raises(ValueError, match="catalog 'tpch' does not exist"):
         port.query("use tpch.tiny")
+    from presto_tpu_torch.server.catalog_store import CatalogStore
+
+    store = Session(CatalogStore({"a": TpchCatalog(0.001, device="cpu"),
+                                  "b": TpchCatalog(0.01, device="cpu")}), device="cpu")
+    assert store.query("use b.default").rows() == [(0,)]
+    assert store.query("select count(*) from orders").rows() == [(15000,)]
     with pytest.raises(ExecutionError, match="not ported yet: Values2"):
         port.executor.exec_node(type("Values2", (N.PlanNode,), {})())

@@ -527,12 +527,13 @@ def test_show_like_patterns(tu):
 
 
 def test_use_schema(tu):
-    """USE of a schema; USE of a catalog needs server/catalog_store.py."""
+    """USE of a schema; USE catalog.schema of a catalog the session does
+    not have raises ValueError in both packages (USE over a CatalogStore:
+    tests/test_torch_catalog_store.py)."""
     tu.q("create schema s2")
     assert tu.q("use s2") == [(0,)]
     tu.fails("use nothere")
-    with pytest.raises(NotPortedError, match="USE catalog.schema"):
-        tu.port.query("use memory.s2")
+    tu.fails("use memory.s2", match="catalog 'memory' does not exist")
 
 
 def test_show_grants():
