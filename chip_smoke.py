@@ -76,6 +76,31 @@ into a blackhole table (6,000,859 rows reported); lineitem as
 RCFile (Q1, Q6), customer, orders and lineitem as ORC and as shard-store
 shards (Q3; organize() keeps the rows and table_version), customer as
 CSV (Q10's customers' columns against the TPC-H session).
+Then `matview`: a ShardStoreCatalog on the card holding orders, customer,
+nation, region and lineitem's first 80 % of rows (each with its TPC-H
+primary key declared), three materialized views (V1 Q1 with its mergeable
+aggregates, the aggregate kind; V2 a filtered projection of lineitem, the
+append kind; V3 Q3's join and group-by, recompute-only), then the other
+20 % of lineitem in 8 append_batch calls of 4 pages each; after each,
+V1's and V2's texts run fresh (the shard store's per-version work paid
+there), REFRESH of the three (V1 and V2 delta, V3 full with its reason), each
+view against numpy over the rows ingested so far (decimals exact),
+REFRESH FULL of V1 and V2 equal to their delta-maintained rows, and V1's
+text through the result cache patched (patches + 1) and equal to a run
+without the cache, with append, refresh and lookup walls and launches a
+batch; then the fallbacks: an upsert of 4 rows (after an observed query
+with feedback on, every history entry over lineitem invalidated) and a
+batch past DELTA_MAX_FRAC refresh in full with the rewrite reason, and
+organize() keeps every table_version while a later delta refresh works.
+The path must launch kernels 1-3. Then `feedback`, with
+PRESTO_TPU_FEEDBACK=1 for it only: the 23 `tpch22` texts twice on the SF 1
+session (the first run observing, the second planned from the
+observations), both held to the `tpch22` card rows in order, the plans
+that changed counted, EXPLAIN ANALYZE of Q5 with `-- feedback:` hits > 0;
+then Q18 at the streaming budget and Q9 at 6 MiB streamed twice, each
+from an empty store, every join frame that recursed in the first run
+starting the second with its partitions times 2^depth (at most 64). It
+must launch kernels 2 and 3.
 Then the TPC-DS paths, over `TpcdsCatalog(1.0)` on the card: `tpcds`, the
 103 TPC-DS texts, each cold then twice warm, each run held against the
 same text through the port on the CPU (computed meanwhile by five spawned
@@ -1925,6 +1950,526 @@ def files22_path(cat, want, runs=2, device="cuda"):
     return report, checks
 
 
+# -- phase 3: materialized views and history-based feedback ----------------
+
+MV_BASE_FRAC = 0.8  # lineitem's first 80 % of rows loaded before the batches
+MV_BATCHES = 8  # then 8 append_batch calls of 2.5 % each
+MV_PAGES = 4  # pages per append_batch call
+# the shard store's tables and their TPC-H primary keys, declared so that
+# the planner takes n:1 joins (the probe kernel) over them
+MV_KEYS = {"lineitem": ["l_orderkey", "l_linenumber"], "orders": ["o_orderkey"],
+           "customer": ["c_custkey"], "nation": ["n_nationkey"], "region": ["r_regionkey"]}
+MV_KEY_OFFSET = 1 << 40  # l_orderkey offset of the fallbacks' new rows (no order matches)
+MV_SQL = {
+    # V1, the aggregate kind: Q1 with its mergeable aggregates only
+    "v1": ("select l_returnflag, l_linestatus, count(*) as count_order, "
+           "sum(l_quantity) as sum_qty, sum(l_extendedprice) as sum_base_price, "
+           "sum(l_extendedprice * (1 - l_discount)) as sum_disc_price, "
+           "min(l_discount) as min_disc, max(l_tax) as max_tax from lineitem "
+           "where l_shipdate <= date '1998-12-01' - interval '90' day "
+           "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus"),
+    # V2, the append kind: a filtered projection of lineitem
+    "v2": ("select l_orderkey, l_linenumber, l_quantity, l_extendedprice, l_discount, l_shipdate "
+           "from lineitem where l_quantity >= 50 and l_discount >= 0.09"),
+    # V3, recompute-only: Q3's join and group-by without its TopN
+    "v3": ("select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue, o_orderdate, "
+           "o_shippriority from customer, orders, lineitem where c_mktsegment = 'BUILDING' "
+           "and c_custkey = o_custkey and l_orderkey = o_orderkey "
+           "and o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15' "
+           "group by l_orderkey, o_orderdate, o_shippriority"),
+}
+MV_KIND = {"v1": "aggregate", "v2": "append", "v3": None}
+# V3's recompute-only reason: its select list reorders the group keys, so a
+# Project sits on the Aggregate and the classifier meets the Aggregate (over
+# the joins) inside a per-row pipeline, as the JAX package's does
+MV_V3_REASON = "Aggregate"
+MV_COLUMNS = ("l_orderkey", "l_linenumber", "l_quantity", "l_extendedprice", "l_discount",
+              "l_tax", "l_returnflag", "l_linestatus", "l_shipdate")
+
+
+def _rows_page(page, lo, hi):
+    """Rows [lo, hi) of a page."""
+    from presto_tpu_torch.page import Page
+
+    return Page(tuple(b.take_rows(slice(lo, hi)) for b in page.blocks), page.names, hi - lo)
+
+
+def _with_column(page, name, data):
+    """`page` with column `name`'s values replaced by `data`."""
+    import dataclasses
+
+    from presto_tpu_torch.page import Page
+
+    blocks = tuple(dataclasses.replace(b, data=data) if n == name else b
+                   for n, b in zip(page.names, page.blocks))
+    return Page(blocks, page.names, page.count)
+
+
+class MvOracle:
+    """The lineitem rows the shard store holds, as numpy columns in storage
+    units (decimals scaled integers, varchars dictionary codes, dates
+    days), grown by every page written to the store: the input of the
+    views' numpy computations."""
+
+    def __init__(self, first):
+        import numpy as np
+
+        self.cols = {c: np.empty(0, first.block(c).data.numpy().dtype) for c in MV_COLUMNS}
+        self.dicts = {c: first.block(c).dictionary for c in ("l_returnflag", "l_linestatus")}
+
+    def extend(self, page):
+        import numpy as np
+
+        n = int(page.count)
+        for c in MV_COLUMNS:
+            b = page.block(c)
+            if c in self.dicts:
+                assert b.dictionary == self.dicts[c]
+            self.cols[c] = np.concatenate([self.cols[c], b.data[:n].numpy()])
+
+    def upsert(self, page):
+        """Rows of `page` replace the rows with their (l_orderkey,
+        l_linenumber): the store's upsert."""
+        import numpy as np
+
+        n = int(page.count)
+        key = self.cols["l_orderkey"] * 8 + self.cols["l_linenumber"]
+        new = (page.block("l_orderkey").data[:n].numpy() * 8
+               + page.block("l_linenumber").data[:n].numpy())
+        keep = ~np.isin(key, new)
+        for c in MV_COLUMNS:
+            self.cols[c] = self.cols[c][keep]
+        self.extend(page)
+
+    @property
+    def num_rows(self):
+        return len(self.cols["l_orderkey"])
+
+
+def numpy_v1(o):
+    """V1 over the oracle's rows, exactly (decimals as scaled integers)."""
+    from decimal import Decimal
+
+    c = o.cols
+    keep = c["l_shipdate"] <= _days(1998, 12, 1) - 90
+    rf, ls = c["l_returnflag"][keep], c["l_linestatus"][keep]
+    qty, price = c["l_quantity"][keep], c["l_extendedprice"][keep]
+    disc, tax = c["l_discount"][keep], c["l_tax"][keep]
+    rfd, lsd = o.dicts["l_returnflag"], o.dicts["l_linestatus"]
+    rows = []
+    for r in range(len(rfd)):
+        for s in range(len(lsd)):
+            m = (rf == r) & (ls == s)
+            if not m.any():
+                continue
+            rows.append((rfd[r], lsd[s], int(m.sum()), Decimal(int(qty[m].sum())).scaleb(-2),
+                         Decimal(int(price[m].sum())).scaleb(-2),
+                         Decimal(int((price[m] * (100 - disc[m])).sum())).scaleb(-4),
+                         Decimal(int(disc[m].min())).scaleb(-2),
+                         Decimal(int(tax[m].max())).scaleb(-2)))
+    return sorted(rows, key=lambda t: (t[0], t[1]))
+
+
+def numpy_v2(o):
+    from decimal import Decimal
+
+    c = o.cols
+    m = (c["l_quantity"] >= 5000) & (c["l_discount"] >= 9)
+    return [(int(k), int(n), Decimal(int(q)).scaleb(-2), Decimal(int(p)).scaleb(-2),
+             Decimal(int(d)).scaleb(-2), _date(s))
+            for k, n, q, p, d, s in zip(*(c[x][m] for x in (
+                "l_orderkey", "l_linenumber", "l_quantity", "l_extendedprice", "l_discount",
+                "l_shipdate")))]
+
+
+def numpy_v3(o, tables):
+    """V3 (Q3's join and group-by, every group) over the oracle's rows."""
+    from decimal import Decimal
+
+    import numpy as np
+
+    c, od = tables["customer"].columns, tables["orders"].columns
+    cut = _days(1995, 3, 15)
+    cust_ok = np.zeros(int(c["c_custkey"].data.max()) + 1, bool)
+    seg = c["c_mktsegment"]
+    cust_ok[c["c_custkey"].data[seg.data == _code(seg, "BUILDING")]] = True
+    o_ok = (od["o_orderdate"].data < cut) & cust_ok[od["o_custkey"].data]
+    lk = o.cols["l_orderkey"]
+    omax = int(od["o_orderkey"].data.max())
+    known = lk <= omax
+    orow = np.full(len(lk), -1, np.int64)
+    orow[known] = _lookup(od["o_orderkey"].data)[lk[known]]
+    ok = orow >= 0
+    ok[ok] = o_ok[orow[ok]]
+    m = (o.cols["l_shipdate"] > cut) & ok
+    rev = o.cols["l_extendedprice"][m] * (100 - o.cols["l_discount"][m])
+    keys, inv = np.unique(lk[m], return_inverse=True)
+    sums = np.zeros(len(keys), np.int64)
+    np.add.at(sums, inv, rev)
+    oi = _lookup(od["o_orderkey"].data)[keys]
+    return [(int(k), Decimal(int(s)).scaleb(-4), _date(d), int(p)) for k, s, d, p in
+            zip(keys, sums, od["o_orderdate"].data[oi], od["o_shippriority"].data[oi])]
+
+
+def mv_expect(o, tables):
+    return {"v1": numpy_v1(o), "v2": numpy_v2(o), "v3": numpy_v3(o, tables)}
+
+
+def mv_check(sess, expect, label):
+    """Each view's stored rows against `expect` (V1 in its ORDER BY, the
+    others as sets). Returns {view: rows}."""
+    out = {}
+    for v in MV_SQL:
+        rows = sess.query(f"select * from {v}").rows()
+        diff = row_diff(rows, expect[v], ordered=(v == "v1"))
+        if diff is not None:
+            raise AssertionError(f"matview {label}: {v} differs from numpy: {diff}")
+        out[v] = rows
+    return out
+
+
+def _timed(fn):
+    t = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def mv_refresh(sess, view, full=False, mode=None, reason=None):
+    """REFRESH [FULL] one view, timed; its last_mode (and last_reason) must
+    be `mode` (`reason`). Returns ms."""
+    _, ms = _timed(lambda: sess.query(f"refresh materialized view {view}{' full' if full else ''}"))
+    mv = sess.matviews_mgr.views[view]
+    if (mode and mv.last_mode != mode) or (reason and mv.last_reason != reason):
+        raise AssertionError(f"matview: {view} refreshed {mv.last_mode} ({mv.last_reason}), "
+                             f"expected {mode} ({reason})")
+    return ms
+
+
+def matview_store(root, cat, device):
+    """The shard store under `root` on `device`: orders, customer, nation,
+    region whole, lineitem as its first MV_BASE_FRAC of rows, each with
+    its primary key declared (MV_KEYS). Returns (store, lineitem's host page, the
+    oracle, seconds)."""
+    from presto_tpu_torch.connectors.shardstore import ShardStoreCatalog
+
+    t0 = time.perf_counter()
+    store = ShardStoreCatalog(root, device=device)
+    li = None
+    for name, key in MV_KEYS.items():
+        page = cat.page(name).to("cpu")
+        store.create_table(name, {n: b.type for n, b in zip(page.names, page.blocks)},
+                           unique_columns=key)
+        if name == "lineitem":
+            li = page
+            page = _rows_page(page, 0, int(int(page.count) * MV_BASE_FRAC))
+        store.append(name, page)
+    oracle = MvOracle(li)
+    oracle.extend(_rows_page(li, 0, int(int(li.count) * MV_BASE_FRAC)))
+    return store, li, oracle, time.perf_counter() - t0
+
+
+def matview_batches(store, li, oracle, tables, device):
+    """Create V1-V3, then the MV_BATCHES appends, each followed by V1's
+    and V2's texts run fresh (the first touch after the append), REFRESH
+    of all three (V1 and V2 delta, V3 full with its reason), the views
+    against numpy over the rows so far, REFRESH FULL of V1 and V2 equal to
+    their delta-maintained rows, and V1's text run fresh, then through
+    the result cache patched (patches + 1) and equal to the fresh rows.
+    Returns (the store session, [per-batch report])."""
+    from presto_tpu_torch.exec import qcache
+    from presto_tpu_torch.session import Session
+
+    sess = Session(store, device=device, result_cache=False)
+    for v, sql in MV_SQL.items():
+        sess.query(f"create materialized view {v} as {sql}")
+        mv = sess.matviews_mgr.views[v]
+        kind = None if mv.mplan is None else mv.mplan.kind
+        if kind != MV_KIND[v] or (v == "v3" and mv.reason != MV_V3_REASON):
+            raise AssertionError(f"matview: {v} classified {kind} ({mv.reason})")
+    mv_check(sess, mv_expect(oracle, tables), "create")
+    cached = Session(store, device=device, result_cache=True)
+    cached.query(MV_SQL["v1"])
+    n, n0 = int(li.count), oracle.num_rows
+    step = -(-(n - n0) // MV_BATCHES)
+    report = []
+    for i in range(MV_BATCHES):
+        lo, hi = n0 + i * step, min(n0 + (i + 1) * step, n)
+        cuts = [lo + (hi - lo) * j // MV_PAGES for j in range(MV_PAGES + 1)]
+        pages = [_rows_page(li, a, b) for a, b in zip(cuts, cuts[1:])]
+        before = _counts()
+        rows, append_ms = _timed(lambda: store.append_batch("lineitem", pages))
+        if rows != hi - lo:
+            raise AssertionError(f"matview batch {i}: append_batch wrote {rows} rows")
+        for p in pages:
+            oracle.extend(p)
+        # the first query over lineitem after an append pays the shard
+        # store's per-version work (the table-wide dictionaries and the
+        # column-stats sample are rebuilt): V1's and V2's texts run fresh
+        # first, so the refreshes and lookups below compare warm
+        first = {v: _timed(lambda v=v: sess.query(MV_SQL[v]).rows())[1] for v in ("v1", "v2")}
+        rep = {"batch": i, "rows": rows, "lineitem_rows": oracle.num_rows,
+               "append_batch_s": append_ms / 1e3, "first_v1_ms": first["v1"],
+               "first_v2_ms": first["v2"],
+               "v1_delta_ms": mv_refresh(sess, "v1", mode="delta"),
+               "v2_delta_ms": mv_refresh(sess, "v2", mode="delta"),
+               "v3_full_ms": mv_refresh(sess, "v3", mode="full", reason=MV_V3_REASON)}
+        expect = mv_expect(oracle, tables)
+        delta_rows = mv_check(sess, expect, f"batch {i}")
+        rep["v1_full_ms"] = mv_refresh(sess, "v1", full=True, mode="full", reason="forced full")
+        rep["v2_full_ms"] = mv_refresh(sess, "v2", full=True, mode="full", reason="forced full")
+        # the recomputed rows equal the delta-maintained ones exactly (so
+        # numpy's too); V2's in key order
+        for v in ("v1", "v2"):
+            full = sess.query(f"select * from {v}").rows()
+            want = delta_rows[v]
+            if v == "v2":
+                full, want = sorted(full), sorted(want)
+            if full != want:
+                raise AssertionError(f"matview batch {i}: {v} full != delta: "
+                                     f"{row_diff(full, want)}")
+        fresh, rep["fresh_ms"] = _timed(lambda: sess.query(MV_SQL["v1"]).rows())
+        p0 = qcache.RESULT_CACHE.stats.snapshot()["patches"]
+        got, rep["patched_ms"] = _timed(lambda: cached.query(MV_SQL["v1"]).rows())
+        if qcache.RESULT_CACHE.stats.snapshot()["patches"] != p0 + 1:
+            raise AssertionError(f"matview batch {i}: the cached V1 text was not patched")
+        for a, b in ((got, fresh), (got, expect["v1"])):
+            diff = row_diff(a, b)
+            if diff is not None:
+                raise AssertionError(f"matview batch {i}: patched V1 text differs: {diff}")
+        rep["launches"] = {k: v - before[k] for k, v in _counts().items() if k != "q1_partials"}
+        rep["view_rows"] = {v: len(r) for v, r in delta_rows.items()}
+        report.append(rep)
+        print("phase3 matview batch", json.dumps(rep), flush=True)
+    return sess, report
+
+
+def matview_fallbacks(sess, store, li, oracle, tables, device):
+    """The checks after the batches: organize() merges the batches' shards
+    and keeps every table_version, and a later delta refresh works; an
+    upsert of 4 rows (feedback on for a query over lineitem first: the
+    upsert must invalidate every history entry over lineitem) makes V1
+    and V2 refresh in full with the rewrite reason; a batch past
+    DELTA_MAX_FRAC refreshes in full. Each step holds the views against
+    numpy. Returns {check: result}."""
+    import os
+
+    import torch
+
+    from presto_tpu_torch.matview import maintenance
+    from presto_tpu_torch.plan import history as H
+    from presto_tpu_torch.session import Session
+
+    out = {}
+    rewrite = "delta not applicable (rewrite/large delta/race)"
+    versions = {t: store.table_version(t) for t in store.table_names()}
+    shards = {t: store.shard_count(t) for t in store.table_names()}
+    merged, ms = _timed(store.organize)
+    after = {t: store.table_version(t) for t in store.table_names()}
+    shards_after = {t: store.shard_count(t) for t in store.table_names()}
+    if after != versions or not merged:
+        raise AssertionError(f"matview organize: {merged}, versions kept {after == versions}")
+    late = _rows_page(li, 10_000, 15_000)
+    late = _with_column(late, "l_orderkey", late.block("l_orderkey").data + 2 * MV_KEY_OFFSET)
+    store.append_batch("lineitem", [late])
+    oracle.extend(late)
+    out["organize"] = {"organize_ms": ms, "merged": merged, "shards_before": shards,
+                       "shards_after": shards_after,
+                       "v1_delta_ms": mv_refresh(sess, "v1", mode="delta"),
+                       "v2_delta_ms": mv_refresh(sess, "v2", mode="delta")}
+    mv_refresh(sess, "v3", mode="full", reason=MV_V3_REASON)
+    mv_check(sess, mv_expect(oracle, tables), "after organize")
+    old = os.environ.get("PRESTO_TPU_FEEDBACK")
+    os.environ["PRESTO_TPU_FEEDBACK"] = "1"
+    try:
+        H.HISTORY.reset()
+        Session(store, device=device, result_cache=False).query(
+            "select count(*) from lineitem where l_quantity * 1 >= 0")
+        fps = [fp for fp, e in H.HISTORY.rows_snapshot() if "lineitem" in e.tables]
+        inv0 = H.HISTORY.stats.snapshot()["invalidations"]
+        up = _rows_page(li, 0, 4)
+        up = _with_column(up, "l_quantity", up.block("l_quantity").data + 100)
+        res, ms = _timed(lambda: store.upsert("lineitem", up))
+        if res != {"appended": 0, "updated": 4}:
+            raise AssertionError(f"matview upsert: {res}")
+        live = [fp for fp in fps if H.HISTORY.lookup(fp, store) is not None]
+        inv = H.HISTORY.stats.snapshot()["invalidations"] - inv0
+        if not fps or live or inv < len(fps):
+            raise AssertionError(f"matview upsert: {len(live)} of {len(fps)} lineitem history "
+                                 f"entries live, {inv} invalidations")
+    finally:
+        if old is None:
+            os.environ.pop("PRESTO_TPU_FEEDBACK")
+        else:
+            os.environ["PRESTO_TPU_FEEDBACK"] = old
+        H.HISTORY.reset()
+    oracle.upsert(up)
+    out["upsert"] = {"upsert_s": ms / 1e3, "history_entries_invalidated": len(fps),
+                     "v1_ms": mv_refresh(sess, "v1", mode="full", reason=rewrite),
+                     "v2_ms": mv_refresh(sess, "v2", mode="full", reason=rewrite)}
+    mv_refresh(sess, "v3", mode="full", reason=MV_V3_REASON)
+    mv_check(sess, mv_expect(oracle, tables), "after the upsert")
+
+    big = _rows_page(li, 0, 10_000)
+    big = _with_column(big, "l_orderkey", big.block("l_orderkey").data + MV_KEY_OFFSET)
+    frac = maintenance.DELTA_MAX_FRAC
+    maintenance.DELTA_MAX_FRAC = 0.001
+    try:
+        store.append_batch("lineitem", [big])
+        oracle.extend(big)
+        out["too_large"] = {"rows": 10_000, "delta_max_frac": maintenance.DELTA_MAX_FRAC,
+                            "v1_ms": mv_refresh(sess, "v1", mode="full", reason=rewrite),
+                            "v2_ms": mv_refresh(sess, "v2", mode="full", reason=rewrite)}
+    finally:
+        maintenance.DELTA_MAX_FRAC = frac
+    mv_refresh(sess, "v3", mode="full", reason=MV_V3_REASON)
+    mv_check(sess, mv_expect(oracle, tables), "after the large batch")
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def matview_path(cat, tables, device="cuda"):
+    """The `matview` path: the shard store built from `cat`'s TPC-H tables
+    (matview_store), the batches (matview_batches), the fallbacks
+    (matview_fallbacks). `tables` are the host tables of the numpy
+    checks. Returns (report, fallbacks)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store, li, oracle, build_s = matview_store(tmp, cat, device)
+        print(f"phase3 matview store built in {build_s:.3f} s (lineitem rows="
+              f"{oracle.num_rows} of {int(li.count)})", flush=True)
+        sess, report = matview_batches(store, li, oracle, tables, device)
+        falls = matview_fallbacks(sess, store, li, oracle, tables, device)
+        falls["matview_footer"] = sess.explain_analyze("select count(*) from v1").split(
+            "-- matview: ")[1].split("\n")[0]
+        print("phase3 matview fallbacks", json.dumps(falls, default=str), flush=True)
+    return report, falls
+
+
+# the texts the `feedback` path streams twice, and at which budget: Q18 at
+# STREAM_BUDGET, and Q9 at 6 MiB, where one of its hybrid joins recursed
+# once with 17 partitions in the CPU rehearsal at SF 1
+FEEDBACK_STREAM = {"Q18": STREAM_BUDGET, "Q9": 6 << 20}
+
+
+def _plan_text(sess, text):
+    from presto_tpu_torch.plan import nodes as N
+
+    return N.plan_tree_str(sess.plan(text))
+
+
+def observed_streaming_run(cat, text, budget, device="cuda"):
+    """`text` in a new streaming session over `cat` at `budget`, with
+    feedback on. Returns (rows, wall ms, the ladder of the executor that
+    ran — a run that observes goes through a new collector-attached
+    executor, Session._run_observed — and [(join fingerprint, partitions,
+    recursion depth)] of every hybrid join, in the order they finished)."""
+    from presto_tpu_torch.exec.stream import StreamingExecutor
+    from presto_tpu_torch.plan import history as H
+    from presto_tpu_torch.session import Session
+
+    sess = Session(cat, device=device, streaming=True, batch_rows=STREAM_BATCH,
+                   memory_budget=budget, result_cache=False)
+    made, joins = [], []
+    new_executor = sess._new_executor
+    sess._new_executor = lambda collector=None: made.append(new_executor(collector)) or made[-1]
+    record = StreamingExecutor._record_hybrid_outcome
+
+    def spy(ex, node, P, depth_before):
+        d = ex.spill_stats["hybrid_depth"]
+        joins.append((H.fingerprint(node), P, max(d - depth_before, 0)))
+        return record(ex, node, P, depth_before)
+
+    StreamingExecutor._record_hybrid_outcome = spy
+    try:
+        rows, ms = _timed(lambda: sess.query(text).rows())
+    finally:
+        StreamingExecutor._record_hybrid_outcome = record
+    return rows, ms, _ladder(made[-1] if made else sess.executor), joins
+
+
+def feedback_path(sess, cat, device="cuda"):
+    """The `feedback` path, with PRESTO_TPU_FEEDBACK=1 for it only (the
+    store reset before and after): the 23 tpch22 texts on `sess` twice,
+    the first run observing and the second planning from the
+    observations, both held to TPCH22_ROWS in order; the plans that
+    changed; EXPLAIN ANALYZE of Q5 with `-- feedback:` hits > 0; then each
+    FEEDBACK_STREAM text streamed twice over `cat` at its budget from an
+    empty store, with its hybrid parts and depth per run: every join frame
+    that recursed in the first run (Q9's must) starts the second with at
+    least min(P0 * 2^depth, 64) partitions. Returns {label: report}."""
+    import os
+
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+    from presto_tpu_torch.plan import history as H
+
+    old = os.environ.get("PRESTO_TPU_FEEDBACK")
+    os.environ["PRESTO_TPU_FEEDBACK"] = "1"
+    H.HISTORY.reset()
+    try:
+        report = {}
+        texts = tpch22_texts()
+        for run in (1, 2):
+            for label, text in texts.items():
+                plan = _plan_text(sess, text)
+                before = _counts()
+                rows, ms = _timed(lambda: sess.query(text).rows())
+                diff = row_diff(rows, TPCH22_ROWS[label])
+                if diff is not None:
+                    raise AssertionError(f"feedback {label} run {run} differs from tpch22: {diff}")
+                launches = {k: v - before[k] for k, v in _counts().items() if k != "q1_partials"}
+                if run == 1:
+                    report[label] = {"first_ms": ms, "first_launches": launches, "plan": plan}
+                else:
+                    rep = report[label]
+                    rep.update(second_ms=ms, second_launches=launches,
+                               plan_changed=plan != rep.pop("plan"))
+                    print(f"phase3 feedback {label}", json.dumps(rep), flush=True)
+        changed = sorted(lb for lb, r in report.items() if r["plan_changed"])
+        txt = sess.explain_analyze(QUERIES[5])
+        (line,) = [ln for ln in txt.split("\n") if ln.startswith("-- feedback:")]
+        hits = int(line.split("hits=")[1].split()[0])
+        if hits <= 0:
+            raise AssertionError(f"feedback: EXPLAIN ANALYZE of Q5 shows no hits: {line}")
+        store = H.HISTORY.stats.snapshot()
+        print(f"phase3 feedback plans changed {len(changed)} of {len(texts)}: {changed}; Q5 "
+              f"EXPLAIN ANALYZE {line[3:]}; store {json.dumps(store)}", flush=True)
+        for label, budget in FEEDBACK_STREAM.items():
+            # from an empty store, so that the first run plans statically
+            # (the runs above recorded the text's frames on this catalog)
+            H.HISTORY.reset()
+            runs = []
+            for run in (1, 2):
+                rows, ms, ladder, joins = observed_streaming_run(cat, texts[label], budget, device)
+                diff = row_diff(rows, TPCH22_ROWS[label])
+                if diff is not None:
+                    raise AssertionError(f"feedback streamed {label} run {run}: {diff}")
+                runs.append({"ms": ms, "hybrid_parts": ladder["hybrid_parts"],
+                             "hybrid_depth": ladder["hybrid_depth"], "spill": ladder["spill"],
+                             "joins": joins})
+            # each join frame that recursed in the first run starts the
+            # second with its partitions scaled by 2^depth (capped at 64)
+            second = {fp: p for fp, p, _d in runs[1]["joins"]}
+            rescaled = [(fp, p, d, second[fp]) for fp, p, d in runs[0]["joins"]
+                        if d > 0 and fp in second]
+            bad = [r for r in rescaled if r[3] < min(r[1] << r[2], 64)]
+            if bad or (label == "Q9" and not rescaled):
+                raise AssertionError(f"feedback streamed {label}: rescaled {rescaled}, runs {runs}")
+            report[f"stream_{label}"] = {"budget": budget, "runs": runs, "rescaled": rescaled}
+            print(f"phase3 feedback streamed {label} at B={budget}",
+                  json.dumps(report[f"stream_{label}"]), flush=True)
+        report["summary"] = {"plans_changed": changed, "q5_hits": hits, "store": store}
+        return report
+    finally:
+        if old is None:
+            os.environ.pop("PRESTO_TPU_FEEDBACK")
+        else:
+            os.environ["PRESTO_TPU_FEEDBACK"] = old
+        H.HISTORY.reset()
+
+
 # -- phase 3: TPC-DS at SF 1, and the scalar function library ---------------
 
 TPCDS_SF = 1.0
@@ -3748,6 +4293,27 @@ def main() -> int:
     for k in ("groupby_partials", "join_insert", "join_probe"):
         if path_counts["files22"][k] < 1:
             raise AssertionError(f"the files22 path did not launch {k}")
+
+    # phase 3, materialized views over a shard store built from the TPC-H
+    # tables with lineitem streamed in, then history-based feedback on the
+    # TPC-H session; the counts at 0 just before each
+    t0 = time.perf_counter()
+    _zero_counts()
+    matview_path(cat, tables)
+    path_counts["matview"] = _counts()
+    print(f"phase3 matview launches {json.dumps(path_counts['matview'])} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    _zero_counts()
+    feedback_path(sess, cat)
+    path_counts["feedback"] = _counts()
+    print(f"phase3 feedback launches {json.dumps(path_counts['feedback'])} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for path, kernels in (("matview", ("groupby_partials", "join_insert", "join_probe")),
+                          ("feedback", ("join_insert", "join_probe"))):
+        for k in kernels:
+            if path_counts[path][k] < 1:
+                raise AssertionError(f"the {path} path did not launch {k}")
 
     # phase 3, TPC-DS at SF 1: the 103 texts on the card, then the scalar
     # function library against the CPU over the same host tables, the

@@ -48,6 +48,10 @@ from .spi import DeltaUnavailable, Predicate, WritableConnector, WriteError
 
 # compaction target: merge small shards until ~this many rows
 DEFAULT_COMPACT_ROWS = 1 << 20
+# rows per Parquet row group of a shard file: a scan of a row range reads
+# only the groups that hold it (the column-stats sample reads 8 strided
+# ranges; with one group a shard it read every column 8 times whole)
+SHARD_ROW_GROUP = 1 << 17
 
 
 def _decode_stat(kind: str, txt: str):
@@ -343,8 +347,10 @@ class ShardStoreCatalog(WritableConnector):
                 {n: pa.array([], type=_type_to_arrow(schema[n]))
                  for n in names}
             )
+        # a zero-row page keeps one slot (ops/union.empty_page's rule): the
+        # operators take capacity 0 for no input at all
         return arrow_table_to_page(
-            tb, names, tb.num_rows, None,
+            tb, names, tb.num_rows, 1,
             lambda name: self._dictionary(table, name), self.device,
         )
 
@@ -433,7 +439,7 @@ class ShardStoreCatalog(WritableConnector):
         path = os.path.join(
             self.directory, f"{table}.{uuid.uuid4().hex}.parquet"
         )
-        pq.write_table(arrow_table, path)
+        pq.write_table(arrow_table, path, row_group_size=SHARD_ROW_GROUP)
         return path
 
     def _insert_shard_meta(self, table, path, rows, stats, seq=None,
@@ -645,6 +651,24 @@ class ShardStoreCatalog(WritableConnector):
 
         return pq.read_table(path, columns=columns)
 
+    def _read_rows(self, path: str, columns, lo: int, hi: int, rows: int):
+        """Rows [lo, hi) of a shard file of `rows` rows: a whole-shard range
+        reads the file, a part reads only the row groups that hold it."""
+        import pyarrow.parquet as pq
+
+        if lo == 0 and hi == rows:
+            return self._read_shard(path, columns)
+        f = pq.ParquetFile(path)
+        groups, start, first = [], 0, 0
+        for g in range(f.metadata.num_row_groups):
+            n = f.metadata.row_group(g).num_rows
+            if start < hi and start + n > lo:
+                if not groups:
+                    first = start
+                groups.append(g)
+            start += n
+        return f.read_row_groups(groups, columns=columns).slice(lo - first, hi - lo)
+
     def _dictionary(self, table: str, column: str):
         key = (table, column, self._version(table))
         got = self._dict_cache.get(key)
@@ -739,14 +763,11 @@ class ShardStoreCatalog(WritableConnector):
             if predicate and self._refuted(sid, predicate):
                 skipped += 1
                 continue
-            kept.append((path, max(start - s0, 0), min(stop, s1) - s0))
+            kept.append((path, max(start - s0, 0), min(stop, s1) - s0, rows))
         self.last_scan_files_read = len(kept)
         self.last_scan_files_skipped = skipped
         try:
-            pieces = [
-                self._read_shard(p, names).slice(lo, hi - lo)
-                for p, lo, hi in kept
-            ]
+            pieces = [self._read_rows(p, names, lo, hi, rows) for p, lo, hi, rows in kept]
         except FileNotFoundError:
             # a concurrent organize() GC'd a file between listing and
             # read; seq-stable offsets make a retry against fresh
@@ -768,7 +789,7 @@ class ShardStoreCatalog(WritableConnector):
                  for n in names}
             )
         return arrow_table_to_page(
-            tb, names, tb.num_rows, pad_to,
+            tb, names, tb.num_rows, max(pad_to or 0, 1),
             lambda name: self._dictionary(table, name), self.device,
         )
 

@@ -77,10 +77,11 @@ class Executor:
         self._retries = 0  # adaptive-capacity re-runs
         # (width tried, width retried with) of each collection-width retry
         self.width_retries = []
-        # CBO row estimates per plan node, LRU-bounded: a long-lived
-        # session executes unboundedly many plans
+        # CBO row estimates and full plan stats per (plan node, estimate
+        # environment), LRU-bounded: a long-lived session executes
+        # unboundedly many plans
         self._est_cache = LRUCache(max_entries=4096, name="row_est")
-        self._ps_cache: Dict = {}
+        self._ps_cache = LRUCache(max_entries=1024, name="plan_stats")
         # runtime dynamic filters: per-query build-side summaries consumed
         # by probe-side scans and filters
         self.dyn_ctx = DynamicFilterContext()
@@ -162,8 +163,10 @@ class Executor:
         return Page(tuple(blocks), page.names, page.count)
 
     def _est_rows(self, node):
-        """CBO row estimate for a node's output (cached per plan node)."""
-        hit = self._est_cache.get(node, count=False)
+        """CBO row estimate for a node's output (cached per plan node and
+        estimate environment)."""
+        key = (node,) + self._est_env()
+        hit = self._est_cache.get(key, count=False)
         if hit is not None:
             return hit[0]
         try:
@@ -172,8 +175,17 @@ class Executor:
             est = float(derive(node, self.catalog).rows)
         except Exception:  # noqa: BLE001 — estimation is best-effort
             est = None
-        self._est_cache.put(node, (est,))
+        self._est_cache.put(key, (est,))
         return est
+
+    def _est_env(self) -> tuple:
+        """Environment half of the estimate-cache keys: the feedback
+        store's generation (a recorded observation or an invalidation must
+        never leave a live executor serving estimates derived from the
+        superseded history) and the mesh width, 1 on one card."""
+        from ..plan.history import plan_env_token
+
+        return plan_env_token(), 1
 
     # -- EXPLAIN ANALYZE notes --
     def _strategy_note(self, node, name: str) -> None:
@@ -442,15 +454,19 @@ class Executor:
     # -- composite-key packing (ops/keypack.py) --
     def _node_plan_stats(self, node):
         """Memoized full CBO PlanStats for a node (the keypack planner's
-        column min/max/NDV)."""
-        if node not in self._ps_cache:
-            from ..plan.stats import derive
+        column min/max/NDV), keyed as _est_rows."""
+        key = (node,) + self._est_env()
+        hit = self._ps_cache.get(key, count=False)
+        if hit is not None:
+            return hit[0]
+        from ..plan.stats import derive
 
-            try:
-                self._ps_cache[node] = derive(node, self.catalog)
-            except Exception:  # noqa: BLE001 — estimation is best-effort
-                self._ps_cache[node] = None
-        return self._ps_cache[node]
+        try:
+            ps = derive(node, self.catalog)
+        except Exception:  # noqa: BLE001 — estimation is best-effort
+            ps = None
+        self._ps_cache.put(key, (ps,))
+        return ps
 
     def _keypack_plan(self, node, keys, page: Page, equality_only=False,
                       allow_hashed=False, single_lane=False, n_order_keys=0):

@@ -6,7 +6,7 @@ statements + plan reuse (presto-main QueryPreparer / the analyzer's
 parameter rewriting) and the per-split result caching of Presto's
 `fragment-result-cache` (presto-main/.../operator/FragmentResultCache).
 
-Two stacked caches, both process-wide and observable:
+Three caches, all process-wide and observable:
 
 * PLAN_CACHE   — (normalized statement AST, catalog identity, planning
   env, connector snapshot versions) -> optimized plan, for deterministic
@@ -21,11 +21,18 @@ Two stacked caches, both process-wide and observable:
   (`table_version` -> None) is NEVER cached — stale reads are impossible
   by construction, not by TTL.
 
-The JAX package's third cache, of traced kernels, has no counterpart:
-eager PyTorch traces nothing, and the CUDA kernels are built once per
-process (cuda_build.py). Its delta patch of stale result entries
-(matview/patch.py) is not ported, so an entry's `tokens` stay None and a
-stale entry is invalidated.
+* HISTORY_CACHE — byte-bounded LRU under the feedback store
+  (plan/history.py HistoryStore): observed row counts per plan frame.
+
+The JAX package's cache of traced kernels has no counterpart: eager
+PyTorch traces nothing, and the CUDA kernels are built once per process
+(cuda_build.py).
+
+A result entry records its tables' delta cursors (`tokens`, connector
+delta_token(), e.g. the shard store's). When its tables moved by appends
+only, a lookup PATCHES it from the (token, now] delta through the view
+maintenance pipeline (matview/patch.py) instead of invalidating it: the
+third verdict beside hit and invalidate.
 
 Validity rule shared by the plan and result caches: every entry records
 the tables it read and their connector snapshot versions AT PLAN/EXECUTE
@@ -59,6 +66,7 @@ def _env_int(name: str, default: int) -> int:
 class CacheStats:
     __slots__ = (
         "hits", "misses", "stores", "evictions", "invalidations", "bytes",
+        "patches",
     )
 
     def __init__(self):
@@ -68,6 +76,7 @@ class CacheStats:
         self.evictions = 0
         self.invalidations = 0  # version-bump / identity-mismatch drops
         self.bytes = 0
+        self.patches = 0  # stale entries updated in place from deltas
 
     def snapshot(self) -> dict:
         total = self.hits + self.misses
@@ -78,6 +87,7 @@ class CacheStats:
             "evictions": self.evictions,
             "invalidations": self.invalidations,
             "bytes": self.bytes,
+            "patches": self.patches,
             "hit_rate": round(self.hits / total, 4) if total else None,
         }
 
@@ -185,6 +195,27 @@ def table_versions(catalog, tables) -> Optional[Tuple[int, ...]]:
         if v is None:
             return None
         out.append(int(v))
+    return tuple(out)
+
+
+def delta_tokens(catalog, tables) -> Optional[Tuple[Any, ...]]:
+    """Per-table delta cursors (connector delta_token(), e.g. the shard
+    store's seq high-water marks), or None when any table's connector
+    cannot produce one. Tokens make a result entry PATCHABLE: on a version
+    mismatch the cache applies the (token, now] delta instead of evicting
+    (the matview maintenance pipeline)."""
+    fn = getattr(catalog, "delta_token", None)
+    if fn is None:
+        return None
+    out = []
+    for tname in tables:
+        try:
+            tok = fn(tname)
+        except Exception:  # noqa: BLE001 — dropped table: not patchable
+            return None
+        if tok is None:
+            return None
+        out.append(tok)
     return tuple(out)
 
 
@@ -391,8 +422,8 @@ class ResultEntry:
     versions: Tuple[int, ...]
     catalog_ref: Any
     nbytes: int = 0
-    # per-table delta cursors: always None here (no delta patch), so an
-    # entry can only hit or invalidate
+    # per-table delta cursors recorded with the entry; None = the entry
+    # can only hit or invalidate, never patch
     tokens: Optional[Tuple[Any, ...]] = None
 
 
@@ -401,14 +432,18 @@ class ResultCache(SnapshotValidatedCache):
         super().__init__(max_bytes=max_bytes, name="result")
 
     def preversions(self, plan, catalog):
-        """(tables, versions) read BEFORE execution — the ordering that
-        makes a concurrent write waste the entry instead of staling it —
-        or None when any table is unversioned (bypass)."""
+        """(tables, versions, tokens) read BEFORE execution — the ordering
+        that makes a concurrent write waste the entry instead of staling
+        it — or None when any table is unversioned (bypass). Tokens are
+        read AFTER the version vector; store() keeps them only when the
+        versions still match after the run, which pins the executed data
+        to exactly the tokens' snapshot (a later delta can never count
+        rows twice that raced in during the run)."""
         tables = plan_tables(plan)
         versions = table_versions(catalog, tables)
         if versions is None:
             return None
-        return (tables, versions)
+        return (tables, versions, delta_tokens(catalog, tables))
 
     def store(self, key, page, titles, catalog, pre) -> None:
         if not self.enabled or pre is None:
@@ -422,9 +457,52 @@ class ResultCache(SnapshotValidatedCache):
         nbytes = int(page_device_bytes(page))
         if self.max_bytes is not None and nbytes > self.max_bytes:
             return  # bigger than the whole cache: not worth thrashing
-        tables, versions = pre
+        tables, versions, tokens = pre
+        if tokens is not None and table_versions(catalog, tables) != versions:
+            # a writer raced the run: the page may hold rows newer than
+            # the tokens claim, and a patch from them would apply those
+            # rows twice — keep the entry but make it unpatchable
+            tokens = None
         self.put(key, ResultEntry(page, tuple(titles), tables, versions,
-                                  ref, nbytes), nbytes=nbytes)
+                                  ref, nbytes, tokens), nbytes=nbytes)
+
+    def lookup(self, key, catalog):
+        """Hit / patch / invalidate: the snapshot-validated lookup plus a
+        third verdict — an entry whose base tables moved by appends only
+        is brought up to date IN PLACE from the (token, now] delta when
+        its plan (key[1]) is delta-patchable, instead of being evicted.
+        patch_entry returns None where patching does not apply (no
+        tokens, a rewrite, a receding cursor, DeltaUnavailable, a delta
+        too large); any other fault propagates and fails the query."""
+        ent = self.get(key, count=False)
+        if ent is None:
+            with self._lock:
+                self.stats.misses += 1
+            return None
+        if ent.catalog_ref() is not catalog:
+            self.invalidate(key)
+            with self._lock:
+                self.stats.misses += 1
+            return None
+        if table_versions(catalog, ent.tables) == ent.versions:
+            with self._lock:
+                self.stats.hits += 1
+            return ent
+        patched = None
+        if ent.tokens is not None and len(key) >= 2:
+            from ..matview.patch import patch_entry
+
+            patched = patch_entry(key[1], ent, catalog)
+        if patched is not None:
+            self.put(key, patched, nbytes=patched.nbytes)
+            with self._lock:
+                self.stats.patches += 1
+                self.stats.hits += 1
+            return patched
+        self.invalidate(key)
+        with self._lock:
+            self.stats.misses += 1
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -433,23 +511,33 @@ class ResultCache(SnapshotValidatedCache):
 
 PLAN_CACHE = PlanCache(_env_int("PRESTO_TPU_PLAN_CACHE_ENTRIES", 256))
 RESULT_CACHE = ResultCache(_env_int("PRESTO_TPU_RESULT_CACHE_BYTES", 64 << 20))
+# observed-row-count feedback entries (plan/history.py HistoryStore),
+# bounded like the JAX package's: an entry is a few hundred bytes
+HISTORY_CACHE = LRUCache(
+    max_entries=_env_int("PRESTO_TPU_FEEDBACK_ENTRIES", 8192),
+    max_bytes=_env_int("PRESTO_TPU_FEEDBACK_BYTES", 4 << 20),
+    name="history",
+)
 
 
 def snapshot_all() -> Dict[str, dict]:
     return {
         "plan": PLAN_CACHE.snapshot(),
         "result": RESULT_CACHE.snapshot(),
+        "history": HISTORY_CACHE.snapshot(),
     }
 
 
 def format_summary(snap: Dict[str, dict]) -> str:
     """One-line cache summary for EXPLAIN ANALYZE."""
     parts = []
-    for name in ("plan", "result"):
+    for name in ("plan", "result", "history"):
         s = snap.get(name)
         if s is None:
             continue
         line = f"{name} {s['hits']}h/{s['misses']}m/{s['evictions']}e"
+        if s.get("patches"):
+            line += f"/{s['patches']}p"
         if s.get("bytes"):
             line += f" {s['bytes']:,}B"
         parts.append(line)
@@ -458,5 +546,11 @@ def format_summary(snap: Dict[str, dict]) -> str:
 
 def reset_all() -> None:
     """Test hook: drop every cached entry AND zero the counters."""
-    for c in (PLAN_CACHE, RESULT_CACHE):
+    for c in (PLAN_CACHE, RESULT_CACHE, HISTORY_CACHE):
         c.reset()
+    # the feedback store layers a generation counter and its own stats
+    # over HISTORY_CACHE; reset those too, or a cleared cache would keep
+    # serving a stale generation to the executors' estimate caches
+    from ..plan import history
+
+    history.HISTORY.reset()

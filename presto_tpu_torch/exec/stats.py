@@ -93,10 +93,17 @@ def page_device_bytes(page) -> int:
 
 
 def read_counts(tensors) -> list:
-    """Python ints of 0-d count tensors: ONE host transfer for all."""
-    if not tensors:
-        return []
-    return torch.stack([x.reshape(()).to(torch.int64) for x in tensors]).tolist()
+    """Python ints of 0-d count tensors: ONE host transfer per device (a
+    streaming run mixes card pages with host-tier pages)."""
+    by_device: Dict = {}
+    for i, x in enumerate(tensors):
+        by_device.setdefault(x.device, []).append(i)
+    out = [0] * len(tensors)
+    for idx in by_device.values():
+        values = torch.stack([tensors[i].reshape(()).to(torch.int64) for i in idx]).tolist()
+        for i, v in zip(idx, values):
+            out[i] = v
+    return out
 
 
 class StatsCollector:
@@ -139,8 +146,8 @@ class StatsCollector:
         self.peak_bytes = max(self.peak_bytes, live)
 
     def resolve(self) -> None:
-        """Fold every parked row count into the integer stats: ONE host
-        read for all of them (read_counts)."""
+        """Fold every parked row count into the integer stats: one host
+        read per device for all of them (read_counts)."""
         pending, self._pending = self._pending, []
         tensors = [x for _s, ins, outs in pending for x in ins + outs
                    if isinstance(x, torch.Tensor)]

@@ -35,9 +35,10 @@ sizing): here a fault propagates and fails the query. Two routes are
 choices of algorithm and stay: keys whose dictionaries are too large to
 value-hash take the chunked build loop (`_hybrid_unsafe_keys`), and an
 all-ties or depth-exhausted partition takes build chunks (counted in
-spill_stats["chunk_fallbacks"]). History-based partition sizing waits for
-plan/history.py (ROADMAP queue 1 item 7): the partition count comes from
-the sizes and PRESTO_TPU_HYBRID_JOIN_PARTS.
+spill_stats["chunk_fallbacks"]). With feedback on (plan/history.py), a
+join frame that recursed before starts with its recorded partitions
+scaled by 2^depth (`_hybrid_history_parts`), and each hybrid join records
+how it partitioned (`_record_hybrid_outcome`).
 
 Results of external sorts and spilled aggregations are host-backed pages;
 Output takes them as they are, and any other operator above gets them
@@ -67,6 +68,7 @@ from ..page import Page, round_capacity
 from ..plan import nodes as N
 from .executor import Executor
 from .memory import MemoryExceededError, MemoryPool
+from .qcache import plan_tables
 from .spill import HostTable, SpilledRows, hash_partition_indices, partition_of
 from .stats import page_device_bytes
 
@@ -744,13 +746,45 @@ class StreamingExecutor:
             finally:
                 self.pool.free(nb)
 
-    def _hybrid_partition_count(self, total_bytes: int, share: int, cap: int = 64) -> int:
+    def _hybrid_partition_count(self, total_bytes: int, share: int, cap: int = 64,
+                                node=None) -> int:
         env = int(os.environ.get("PRESTO_TPU_HYBRID_JOIN_PARTS", "0"))
         if env > 0:
-            return env  # manual override
+            return env  # manual override beats both heuristics
         # 2x headroom per partition (arXiv:2112.02480: over-partitioning
         # is cheap, under-partitioning forces recursion)
-        return min(max(-(-total_bytes * 2 // max(share, 1)), 2), cap)
+        P = min(max(-(-total_bytes * 2 // max(share, 1)), 2), cap)
+        if node is not None:
+            P = self._hybrid_history_parts(node, P, cap)
+        return P
+
+    def _hybrid_history_parts(self, node: N.Join, P: int, cap: int) -> int:
+        """History-based sizing (plan/history.py): a join frame that
+        recursed before with P0 partitions wants P0 * 2^depth up front —
+        recursion repartitions the SAME rows on fresh hash bits, so
+        pre-scaling buys the one-pass layout the byte estimate undersized.
+        Never below the byte-derived count, never above `cap`."""
+        from ..plan.history import HISTORY, feedback_on, fingerprint
+
+        if not feedback_on():
+            return P
+        ent = HISTORY.lookup(fingerprint(node), self.catalog)
+        if ent is None or not ent.hybrid_parts:
+            return P
+        want = ent.hybrid_parts << max(int(ent.hybrid_depth), 0)
+        return min(max(P, want), cap)
+
+    def _record_hybrid_outcome(self, node: N.Join, P: int, depth_before: int) -> None:
+        """Remember how this join frame partitioned (the feedback half of
+        _hybrid_history_parts). spill_stats holds the query-wide max depth,
+        so only the depth gained since THIS join started is its own."""
+        from ..plan.history import HISTORY, feedback_on, fingerprint
+
+        if not feedback_on():
+            return
+        d = self.spill_stats["hybrid_depth"]
+        HISTORY.record(fingerprint(node), catalog=self.catalog, tables=plan_tables(node),
+                       hybrid=(P, max(d - depth_before, 0)), kind="Join")
 
     def _hybrid_setup(self, node: N.Join, spilled) -> dict:
         """Hash-partition the build side, choose the resident set (smallest
@@ -760,7 +794,7 @@ class StreamingExecutor:
         share = self._spill_share()
         row_b = max(spilled.row_bytes, 1)
         total_bytes = spilled.num_rows * row_b
-        P = self._hybrid_partition_count(total_bytes, share)
+        P = self._hybrid_partition_count(total_bytes, share, node=node)
         chunk_rows = max(share // (2 * row_b), 1 << 10)
         parts = hash_partition_indices(spilled, node.right_keys, P, chunk_rows, salt=0,
                                        value_safe=True)
@@ -822,6 +856,7 @@ class StreamingExecutor:
         bs_mem = setup["bs_mem"]
         mem_held = setup["mem_held"]
         max_depth = setup["max_depth"]
+        depth_before = self.spill_stats["hybrid_depth"]
         self.spill_events.append("hybrid_hash_join")
         self.spill_stats["hybrid_parts"] = max(self.spill_stats["hybrid_parts"], P)
         res_lut = torch.from_numpy(setup["res_np"]).to(self.device)
@@ -874,6 +909,7 @@ class StreamingExecutor:
             empty = spilled.take_page(np.empty(0, np.int64))
             yield from self._probe_with(node, build(empty, node.right_keys), right_names,
                                         iter([first_probe]))
+        self._record_hybrid_outcome(node, P, depth_before)
 
     def _join_partition(self, node: N.Join, build_sub, probe_sub, right_names, depth: int,
                         chunk_rows: int, max_depth: int):

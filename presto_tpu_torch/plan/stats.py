@@ -116,20 +116,49 @@ def literal_value(lit: ir.Literal) -> Optional[float]:
 
 class StatsDeriver:
     """One memoized derivation walk (reference StatsCalculator's rule set,
-    collapsed into a visitor). The JAX package can override estimates with
-    observed row counts (plan/history.py); that feedback is not ported yet,
-    so this is its static derivation — the one it runs by default."""
+    collapsed into a visitor).
+
+    With history-based feedback on (plan/history.py, PRESTO_TPU_FEEDBACK),
+    every derived estimate is overridden by a validated OBSERVED row count
+    for the node's semantic frame before it is memoized, so join
+    reordering and build/probe-side selection run on measured rows. Pass
+    use_history=False to force the static derivation (the baseline the
+    feedback error compares against), use_history=True to consult the
+    store whatever the knob says."""
 
     def __init__(self, catalog, use_history: Optional[bool] = None):
         self.catalog = catalog
         self._memo: Dict[int, PlanStats] = {}
+        self._fp_memo: Dict[int, tuple] = {}
+        self._history = None
+        if use_history is not False:
+            from . import history as H
+
+            if use_history or H.feedback_on():
+                self._history = H.HISTORY
 
     def stats(self, node: N.PlanNode) -> PlanStats:
         got = self._memo.get(id(node))
         if got is None:
             got = self._derive(node)
+            if self._history is not None:
+                got = self._observed(node, got)
             self._memo[id(node)] = got
         return got
+
+    def _observed(self, node: N.PlanNode, ps: PlanStats) -> PlanStats:
+        """Replace the estimated row count with the store's observation
+        when one is live for this node's frame; column stats stay derived
+        (history records counts, not distributions), their NDVs capped at
+        the observed rows. A store fault propagates (the JAX package
+        trips its adaptive_plan breaker and derives statically)."""
+        from . import history as H
+
+        fp = H.fingerprint(node, self._fp_memo)
+        obs = self._history.observed_rows(fp, self.catalog)
+        if obs is None:
+            return ps
+        return PlanStats(obs, {c: s.cap_ndv(obs) for c, s in ps.columns.items()})
 
     # -- per-node rules --
 

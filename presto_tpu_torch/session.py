@@ -14,11 +14,13 @@ EXPLAIN (TYPE VALIDATE | IO) and EXPLAIN ANALYZE (exec/stats.py), and the
 streaming executor under a device budget (exec/stream.py: `streaming`,
 `batch_rows`, `memory_budget`, as arguments or SET SESSION properties).
 USE catalog.schema over a CatalogStore (server/catalog_store.py) makes
-the used catalog the first resolver of bare names. Not ported, raising
-NotPortedError: materialized views, EXPLAIN (TYPE DISTRIBUTED), and the
-matmul group-by property;
-the JAX package's mesh, observability spans and history feedback have no
-counterpart here.
+the used catalog the first resolver of bare names. CREATE, REFRESH
+[FULL] and DROP MATERIALIZED VIEW run through matview/manager.py, and
+with PRESTO_TPU_FEEDBACK=1 a query whose plan has a frame the history
+store lacks runs once observed and records its row counts
+(plan/history.py). Not ported, raising NotPortedError: EXPLAIN (TYPE
+DISTRIBUTED) and the matmul group-by property; the JAX package's mesh
+and observability spans have no counterpart here.
 """
 
 from __future__ import annotations
@@ -37,10 +39,6 @@ from .plan import nodes as N
 from .sql import tree as t
 from .sql.parser import parse
 from .sql.planner import Planner
-
-# stands in for the JAX package's plan_env_token() (plan/history.py, the
-# feedback store's generation) until that module is ported
-_PLAN_ENV_TOKEN = 0
 
 
 class QueryResult:
@@ -262,6 +260,9 @@ class Session:
         self._prop_sessions: dict = {}  # property set -> derived Session
         self._txn = None
         self._txn_base = None
+        from .matview.manager import MatViewManager
+
+        self.matviews_mgr = MatViewManager(self)
 
     def _new_executor(self, collector=None):
         """The engine the session runs: the streaming executor when the
@@ -321,6 +322,7 @@ class Session:
             derived.views = self.views
             derived.prepared = self.prepared
             derived.schemas = self.schemas
+            derived.matviews_mgr = self.matviews_mgr
             cache[key] = derived
         return derived
 
@@ -336,9 +338,14 @@ class Session:
 
     def _plan_env_key(self):
         """Planning-relevant session state: plans keyed by the same AST
-        are only interchangeable within one catalog object and view set."""
+        are only interchangeable within one catalog object, view set and
+        feedback-store generation (plan/history.py: a recorded
+        observation or an invalidation must re-plan, never reuse a plan
+        built on superseded history)."""
+        from .plan.history import plan_env_token
+
         views_fp = tuple(sorted(self.views.items())) if self.views else ()
-        return (id(self.catalog), views_fp, _PLAN_ENV_TOKEN)
+        return (id(self.catalog), views_fp, plan_env_token())
 
     def _engine_env_key(self):
         """Execution-engine identity, part of the RESULT cache key: two
@@ -440,16 +447,36 @@ class Session:
         from .exec import qcache
 
         if not self.result_cache:
-            return QueryResult(self.executor.run(node), node.titles)
+            return QueryResult(self._run_observed(node), node.titles)
         key = ("r", node, self._plan_env_key(), self._engine_env_key())
         hit = qcache.RESULT_CACHE.lookup(key, self.catalog)
         if hit is not None:
             return QueryResult(hit.page, hit.titles)
         pre = qcache.RESULT_CACHE.preversions(node, self.catalog)
-        page = self.executor.run(node)
+        page = self._run_observed(node)
         if pre is not None and qcache.plan_is_deterministic(node):
             qcache.RESULT_CACHE.store(key, page, node.titles, self.catalog, pre)
         return QueryResult(page, node.titles)
+
+    def _run_observed(self, node):
+        """Observe-once execution for history-based feedback
+        (plan/history.py): when feedback is on AND the store lacks a live
+        entry for some frame of this plan, run through a new
+        collector-attached executor (the EXPLAIN ANALYZE construction) and
+        fold the observed row counts in at the end. Plans whose frames are
+        all remembered take the plain path: the warm cost is one store
+        walk. Unlike the JAX package, a session without the result cache
+        observes too."""
+        from .plan import history as H
+
+        if not (H.feedback_on() and H.HISTORY.wants_observation(node, self.catalog)):
+            return self.executor.run(node)
+        from .exec.stats import StatsCollector
+
+        collector = StatsCollector()
+        page = self._new_executor(collector).run(node)
+        H.HISTORY.record_plan(node, collector, self.catalog)
+        return page
 
     # -- DDL / DML tasks (reference execution/CreateTableTask.java,
     # CreateTableAsSelect via TableWriter/TableFinish operators,
@@ -513,9 +540,17 @@ class Session:
     def _execute_statement(self, ast, user: Optional[str] = None) -> QueryResult:
         if user is None:
             user = self.user
-        if isinstance(ast, (t.CreateMaterializedView, t.RefreshMaterializedView,
-                            t.DropMaterializedView)):
-            raise NotPortedError(f"not ported yet: {type(ast).__name__} (matview/)")
+        # -- materialized views (matview/manager.py; reference
+        # execution/CreateMaterializedViewTask.java) --
+        if isinstance(ast, t.CreateMaterializedView):
+            self.matviews_mgr.create(ast.name, ast.query_sql, ast.if_not_exists)
+            return self._row_count_result(0)
+        if isinstance(ast, t.RefreshMaterializedView):
+            self.matviews_mgr.refresh(ast.name, full=ast.full)
+            return self._row_count_result(0)
+        if isinstance(ast, t.DropMaterializedView):
+            self.matviews_mgr.drop(ast.name, ast.if_exists)
+            return self._row_count_result(0)
         if isinstance(ast, t.Use):
             # reference UseTask: switch the session's default catalog and
             # schema. Over a CatalogStore the used catalog becomes the FIRST
@@ -582,6 +617,8 @@ class Session:
         if isinstance(ast, t.DropTable):
             cat = self._writable()
             name = ast.name.lower()
+            if name in self.matviews_mgr.views:
+                raise ValueError(f"{name!r} is a materialized view; use DROP MATERIALIZED VIEW")
             if name not in cat.table_names():
                 if ast.if_exists:
                     return self._row_count_result(0)
@@ -666,6 +703,8 @@ class Session:
         name = getattr(ast, "name", "")
         name = name.lower() if name else name
         if isinstance(ast, t.CreateView):
+            if name in self.matviews_mgr.views:
+                raise ValueError(f"materialized view {name!r} already exists")
             if name in self.catalog.table_names():
                 raise ValueError(f"table {name!r} already exists")
             if name in self.views and not ast.or_replace:
@@ -1045,6 +1084,8 @@ class Session:
             # would be permanently shadowed — reject the collision both
             # ways (CREATE VIEW already checks tables)
             raise ValueError(f"view {name!r} already exists")
+        if name in self.matviews_mgr.views:
+            raise ValueError(f"materialized view {name!r} already exists")
         if name in cat.table_names():
             if ast.if_not_exists:
                 return self._row_count_result(0)
@@ -1189,7 +1230,26 @@ class Session:
         # re-executes, so these are the process-wide counters the
         # profiled query runs alongside
         cache_txt = "\n-- caches: " + qcache.format_summary(qcache.snapshot_all())
-        return (f"{tree}{dyn_txt}{mem_txt}{cache_txt}\n"
+        # history-based feedback (plan/history.py): fold this run's
+        # observed row counts into the store, then show the store's
+        # counters — what history the query consumed and what it added
+        feedback_txt = ""
+        from .plan import history as H
+
+        if H.feedback_on():
+            H.HISTORY.record_plan(node, collector, self.catalog)
+            fs = H.HISTORY.stats.snapshot()
+            err = fs["mean_abs_rel_err"]
+            feedback_txt = (f"\n-- feedback: hits={fs['hits']} misses={fs['misses']}"
+                            f" records={fs['records']} est-err="
+                            f"{'n/a' if err is None else f'{err:.2f}'}"
+                            f" replans={fs['replans']}")
+        # materialized-view freshness (matview/manager.py): which views
+        # exist, delta or recompute maintenance, and how stale each is
+        matview_txt = ""
+        if self.matviews_mgr.views:
+            matview_txt = "\n-- matview: " + self.matviews_mgr.format_summary()
+        return (f"{tree}{dyn_txt}{mem_txt}{cache_txt}{feedback_txt}{matview_txt}\n"
                 f"-- total {total_ms:,.1f}ms, peak live output {peak:,.2f}MB")
 
     def explain_analyze(self, sql: str) -> str:

@@ -11,9 +11,12 @@ FUNCTION_SQL (both over TPC-DS SF 0.01), the hand-coded pipelines and the
 statement sequence of chip_smoke.py's `statements` path (TPC-H SF 0.01) on
 "cuda" against the same on "cpu"; and the streaming executor at a budget
 that offloads (Q3's hybrid hash join, a NOT IN through the partitioned
-semi join) against the materializing session on the card; and a bucketed
+semi join) against the materializing session on the card; a bucketed
 Hive warehouse read on the card through the grouped bucket join against
-the same warehouse read on the CPU.
+the same warehouse read on the CPU; the `matview` batches of chip_smoke.py
+(three materialized views over a shard store with lineitem appended in
+batches) and TPC-H Q3, Q5, Q9 and Q18 run twice with history-based
+feedback on, each on the card against the CPU (TPC-H SF 0.01).
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -428,3 +431,63 @@ def test_grouped_bucket_join_over_hive_on_card_equals_cpu(cuda, sessions_sf001, 
     assert "grouped_bucket_join" in stream.executor.spill_events
     assert stream.executor.pool.peak <= budget
     assert jk.insert_launches > before[0] and jk.probe_launches > before[1]
+
+
+@pytest.mark.cuda
+def test_matview_cycle_on_card_equals_cpu(cuda, tmp_path):
+    """chip_smoke's `matview` batches at SF 0.01 (V1-V3 over a shard store,
+    lineitem appended in 8 batches, V1 and V2 refreshed by delta and V3 in
+    full, each view held to numpy and the cached V1 text patched) on the
+    card and on the CPU: every view's rows equal, kernels 1-3 launched."""
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        cat = TpchCatalog(0.01, device=dev)
+        tables = {n: cat.host_table(n) for n in chip_smoke.TPCH_TABLES}
+        store, li, oracle, _s = chip_smoke.matview_store(str(tmp_path / dev), cat, dev)
+        before = gk.launches, jk.insert_launches, jk.probe_launches
+        sess, report = chip_smoke.matview_batches(store, li, oracle, tables, dev)
+        if dev == "cuda":
+            assert all(after > b for after, b in zip(
+                (gk.launches, jk.insert_launches, jk.probe_launches), before))
+        assert len(report) == chip_smoke.MV_BATCHES
+        rows[dev] = {v: sess.query(f"select * from {v}").rows() for v in chip_smoke.MV_SQL}
+    for v in chip_smoke.MV_SQL:
+        diff = chip_smoke.row_diff(rows["cuda"][v], rows["cpu"][v], ordered=(v == "v1"))
+        assert diff is None, (v, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [3, 5, 9, 18])
+def test_feedback_double_run_on_card_equals_cpu(cuda, sessions_sf001, monkeypatch, q):
+    """With PRESTO_TPU_FEEDBACK=1 the first run on the card observes and
+    the second plans from the observations; both equal the CPU."""
+    from presto_tpu_torch.plan import history as H
+
+    monkeypatch.setenv("PRESTO_TPU_FEEDBACK", "1")
+    card, cpu = sessions_sf001
+    want = cpu.query(QUERIES[q]).rows()
+    records = H.HISTORY.stats.snapshot()["records"]
+    for _run in range(2):
+        got = card.query(QUERIES[q]).rows()
+        assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
+    assert H.HISTORY.stats.snapshot()["records"] > records
+
+
+@pytest.mark.cuda
+def test_feedback_streamed_on_card_equals_materializing(cuda, sessions_sf001, monkeypatch):
+    """A streamed Q3 at a budget that offloads, run twice with feedback on:
+    the first run observes through a collector whose row counts lie on the
+    card and on the host (read_counts reads each device once), and both
+    runs equal the materializing session on the card."""
+    from presto_tpu_torch.plan import history as H
+
+    monkeypatch.setenv("PRESTO_TPU_FEEDBACK", "1")
+    card, _cpu = sessions_sf001
+    want = card.query(QUERIES[3]).rows()
+    records = H.HISTORY.stats.snapshot()["records"]
+    for _run in range(2):
+        stream = Session(card.catalog, device="cuda", streaming=True, batch_rows=8192,
+                         memory_budget=64 << 10, result_cache=False)
+        got = stream.query(QUERIES[3]).rows()
+        assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
+    assert H.HISTORY.stats.snapshot()["records"] > records

@@ -222,7 +222,7 @@ def test_hybrid_join_partitioning_fault_fails_the_query(monkeypatch):
     neither a reservation nor a spill file survives it."""
     cat, _ref = pair(join_tables(n_build=20_000, n_probe=40_000, seed=8))
 
-    def boom(self, total_bytes, share, cap=64):
+    def boom(self, total_bytes, share, cap=64, node=None):
         raise RuntimeError("injected hybrid partitioning fault")
 
     monkeypatch.setattr(stream_mod.StreamingExecutor, "_hybrid_partition_count", boom)

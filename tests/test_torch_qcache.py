@@ -329,8 +329,11 @@ def test_executor_stat_caches_bounded():
     for i in range(5000):
         ex._est_rows(("fake", i))
     assert len(ex._est_cache) <= 4096
-    # recent keys survive (LRU, not clear-on-threshold)
-    assert ex._est_cache.get(("fake", 4999), count=False) is not None
+    # recent keys survive (LRU, not clear-on-threshold); a key is the node
+    # and the estimate environment (the feedback generation), as in the
+    # JAX package's test_query_cache.py
+    key = (("fake", 4999),) + ex._est_env()
+    assert ex._est_cache.get(key, count=False) is not None
 
 
 def test_reset_concurrent_with_put_keeps_bytes_ledger_consistent():

@@ -1,10 +1,11 @@
 """End to end: TPC-H Q1 and Q6 at SF 0.01 through presto_tpu_torch.Session
 (device="cpu") give exactly presto_tpu.Session's rows (decimals exact), and
 the port's Q1 takes the dense kernel strategy. What the port's session
-still raises NotPortedError for: materialized views and EXPLAIN (TYPE
-DISTRIBUTED); USE catalog.schema runs over a CatalogStore, and a USE of
-a catalog the session does not have raises ValueError, as in the JAX
-package."""
+still raises NotPortedError for: EXPLAIN (TYPE DISTRIBUTED); a
+materialized view over the read-only TPC-H catalog raises WriteError, as
+in the JAX package (tests/test_torch_matview.py holds the views); USE
+catalog.schema runs over a CatalogStore, and a USE of a catalog the
+session does not have raises ValueError, as in the JAX package."""
 
 import pytest
 import torch
@@ -13,6 +14,7 @@ from presto_tpu.benchmark.tpch_sql import QUERIES
 from presto_tpu.connectors.tpch import TpchCatalog as RCatalog
 from presto_tpu.session import Session as RSession
 from presto_tpu_torch import types as T
+from presto_tpu_torch.connectors.spi import WriteError
 from presto_tpu_torch.connectors.tpch import TpchCatalog
 from presto_tpu_torch.exec.executor import ExecutionError
 from presto_tpu_torch.expr import ir
@@ -68,7 +70,7 @@ def test_session_device_and_unported_paths(sessions):
     arr = ir.Call("array_constructor", (key, key), T.ArrayType(T.BIGINT))
     out = port.executor.run(N.Unnest(scan, (arr,), ("e",), None))
     assert out.names[-1] == "e" and int(out.count) == 50
-    with pytest.raises(NotPortedError, match="not ported yet: CreateMaterializedView"):
+    with pytest.raises(WriteError, match="read-only"):
         port.query("create materialized view mv as select 1 x")
     with pytest.raises(NotPortedError, match="not ported yet: EXPLAIN \\(TYPE DISTRIBUTED\\)"):
         port.query("explain (type distributed) select 1")

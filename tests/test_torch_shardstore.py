@@ -3,15 +3,16 @@ CPU, held to the JAX package: the cases of tests/test_shardstore.py (the
 insert/query cycle, min/max shard pruning and its counters, pruning in
 EXPLAIN ANALYZE, compaction, the background organizer, DELETE and DROP
 with file collection, types through shards, offset pagination across
-compaction, table_version and delta tokens across organize(), the result
-cache across organize(), scan_delta and DeltaUnavailable), each run on a
+compaction, scans of row ranges across row groups, table_version and
+delta tokens across organize(), the result cache across organize(),
+scan_delta and DeltaUnavailable), each run on a
 port store and a JAX-package store given the same writes: equal rows,
 shard counts, per-shard min/max stats in metadata.db, pruned counts,
 organize() reports, table versions and delta tokens. Each package opens
 the store the other wrote. Also: shard stats of a column with an
 unsorted dictionary hold its real string bounds (the JAX package takes
 the bounds of the codes and prunes a shard that holds the value, ROADMAP
-queue 3)."""
+queue 3), and an empty table or delta range reads as a one-slot page."""
 
 import os
 import sqlite3
@@ -222,6 +223,49 @@ def test_offset_pagination_stable_across_compaction(tmp_path):
         if start == B:  # compact mid-scan
             assert store.organize().get("t", 0) >= 2
     assert np.array_equal(np.concatenate(got), want)
+
+
+def test_scan_ranges_read_only_their_row_groups(stores):
+    """A shard file holds row groups of SHARD_ROW_GROUP rows; a scan of a
+    row range (the column-stats sample reads 8 strided ranges) reads only
+    the groups that hold it, and returns the rows the JAX package's store
+    returns over the same writes, across group and shard boundaries."""
+    import pyarrow.parquet as pq
+
+    from presto_tpu_torch.connectors import shardstore
+
+    g = shardstore.SHARD_ROW_GROUP
+    n = 2 * g + 1000
+    stores.create_from("t", {"k": np.arange(n, dtype=np.int64),
+                             "v": np.arange(n, dtype=np.int64) % 97})
+    stores.append("t", {"k": np.arange(n, n + 500, dtype=np.int64),
+                        "v": np.zeros(500, np.int64)})
+    (path,) = [p for _i, p, r in stores.port._shards("t") if r == n]
+    assert pq.ParquetFile(path).metadata.num_row_groups == 3
+    for lo, hi in ((0, n + 500), (5, 17), (g - 3, g + 4), (g + 10, 2 * g + 999),
+                   (2 * g + 990, n + 20), (n - 1, n + 500)):
+        got = stores.port.scan("t", lo, hi)
+        want = stores.ref.scan("t", lo, hi)
+        same_rows(got.to_pylist(), want.to_pylist())
+        assert got.block("k").data[:hi - lo].tolist() == list(range(lo, hi))
+
+
+def test_empty_ranges_keep_one_slot(stores):
+    """A table without rows, or a delta range without shards, reads as a
+    zero-row page of one slot (ops/union.empty_page's rule), so a grouped
+    aggregate over it returns no row; the JAX package's store returns
+    capacity 0 and its grouped aggregate raises IndexError (ROADMAP queue
+    3)."""
+    for s in stores.sessions():
+        s.query("create table e (k bigint, v bigint)")
+    port = stores.port
+    assert port.page("e").capacity == 1 and int(port.page("e").count) == 0
+    assert port.scan_delta("e", 0.0, 9.0).capacity == 1
+    port_sess, _ref = stores.sessions()
+    assert port_sess.query("select k, count(*), sum(v) from e group by k").rows() == []
+    assert port_sess.query("select count(*) from e").rows() == [(0,)]
+    with pytest.raises(IndexError):
+        _ref.query("select k, count(*), sum(v) from e group by k")
 
 
 def test_organize_does_not_bump_table_version(stores):
