@@ -140,6 +140,25 @@ def q1_local_kernel(page: Page) -> Page:
     return compact(out, has)
 
 
+def _q1_prelude(page: Page) -> Page:
+    """Q1's scan-filter stage on one worker."""
+    from ..ops.filter import filter_page
+
+    return filter_page(page, Q1_PREDICATE)
+
+
+def q1_distributed(mesh, page: Page) -> Page:
+    """Q1 over a mesh of workers: lineitem sharded over the workers (the
+    split-parallel leaf stage), filtered and partially aggregated on each,
+    the partial rows repartitioned by group hash (the FIXED_HASH exchange),
+    final-aggregated, gathered and sorted (parallel/distributed.py)."""
+    from ..parallel.distributed import dist_grouped_aggregate
+
+    out = dist_grouped_aggregate(mesh, page, Q1_GROUPS, Q1_GROUP_NAMES, q1_aggs(),
+                                 prelude=_q1_prelude)
+    return sort_page(out, (SortKey(Q1_GROUPS[0]), SortKey(Q1_GROUPS[1])))
+
+
 # ---------------------------------------------------------------------------
 # Q6: forecasting revenue change
 # ---------------------------------------------------------------------------

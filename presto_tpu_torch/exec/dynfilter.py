@@ -65,8 +65,10 @@ class DynamicFilter:
 
     def mask(self, val) -> torch.Tensor:
         """Per-row keep mask over a probe key Val/Block: False rows can
-        never match the build side."""
+        never match the build side. The summary follows the probe to its
+        device (a mesh worker's pre-probe may sit on another card)."""
         data = val.data
+        dev = data.device
         if self.empty_build:
             return torch.zeros(data.shape[:1], dtype=torch.bool, device=data.device)
         if self.str_values is not None:
@@ -74,15 +76,15 @@ class DynamicFilter:
         else:
             keep = torch.ones(data.shape[:1], dtype=torch.bool, device=data.device)
             if self.lo is not None and data.ndim == 1:
-                keep = (data >= self.lo) & (data <= self.hi)
+                keep = (data >= self.lo.to(dev)) & (data <= self.hi.to(dev))
             if self.values is not None and data.ndim == 1:
                 dt = torch.promote_types(self.values.dtype, data.dtype)
-                values, probe = self.values.to(dt), data.to(dt).contiguous()
+                values, probe = self.values.to(dev, dt), data.to(dt).contiguous()
                 pos = torch.searchsorted(values, probe).clamp(max=values.shape[0] - 1)
                 keep = keep & (values[pos] == probe)
             elif self.bloom_words is not None:
                 h = hash_column(data)
-                keep = keep & bloom_query(self.bloom_words, h, self.log2_bits)
+                keep = keep & bloom_query(self.bloom_words.to(dev), h, self.log2_bits)
         if val.valid is not None:
             keep = keep & val.valid  # NULL keys never equi-match
         return keep

@@ -29,6 +29,7 @@ node raises ExecutionError("not ported yet: <node>").
 
 from __future__ import annotations
 
+import os
 import re
 import time
 from typing import Dict, Optional, Tuple
@@ -90,6 +91,9 @@ class Executor:
         # across batches (ops/filter.py sample_page)
         self._sample_pos: Dict[int, int] = {}
         self.sample_salt = 0
+        # the width of the mesh this executor serves (exec/dist.py sets it):
+        # part of the estimate-cache keys
+        self.mesh_n = 1
 
     # -- public --
     def run(self, node: N.PlanNode) -> Page:
@@ -182,10 +186,10 @@ class Executor:
         """Environment half of the estimate-cache keys: the feedback
         store's generation (a recorded observation or an invalidation must
         never leave a live executor serving estimates derived from the
-        superseded history) and the mesh width, 1 on one card."""
+        superseded history) and the mesh width (`mesh_n`), 1 on one device."""
         from ..plan.history import plan_env_token
 
-        return plan_env_token(), 1
+        return plan_env_token(), self.mesh_n
 
     # -- EXPLAIN ANALYZE notes --
     def _strategy_note(self, node, name: str) -> None:
@@ -286,7 +290,10 @@ class Executor:
     # -- dynamic filters (exec/dynfilter.py) --
     def _dyn_worthwhile(self, node) -> bool:
         """CBO benefit gate: deriving costs a build-side pass plus a probe
-        mask, so skip joins expected to keep most probe rows."""
+        mask, so skip joins expected to keep most probe rows.
+        PRESTO_TPU_DYNFILTER_FORCE=1 (read per call) derives always."""
+        if os.environ.get("PRESTO_TPU_DYNFILTER_FORCE") == "1":
+            return True
         out_est = self._est_rows(node)
         probe_est = self._est_rows(node.children[0])
         if out_est is None or probe_est is None or probe_est <= 0:

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import dataclasses
 import re
+import threading
+from collections import OrderedDict
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -753,35 +755,67 @@ _alias("day_of_month", "day")
 # ---------------------------------------------------------------------------
 
 
-def _dict_transform(a: Val, fn: Callable[[str], str], out_type=T.VARCHAR) -> Val:
+# (dictionary id, transform key, device) -> the transform's lookup table
+# (and output dictionary id). Interned dictionaries never change, so a
+# keyed transform of one dictionary is built once: a mesh's workers share
+# one column's dictionary, and repeated queries reuse it.
+_DICT_MEMO: OrderedDict = OrderedDict()
+_DICT_MEMO_MAX = 64
+_DICT_MEMO_LOCK = threading.Lock()
+
+
+def _memo_table(a: Val, key, build):
+    if key is None or a.dict_id is None:
+        return build()
+    k = (a.dict_id, key, a.data.device)
+    with _DICT_MEMO_LOCK:
+        hit = _DICT_MEMO.get(k)
+        if hit is not None:
+            _DICT_MEMO.move_to_end(k)
+            return hit
+    hit = build()
+    with _DICT_MEMO_LOCK:
+        _DICT_MEMO[k] = hit
+        if len(_DICT_MEMO) > _DICT_MEMO_MAX:
+            _DICT_MEMO.popitem(last=False)
+    return hit
+
+
+def _dict_transform(a: Val, fn: Callable[[str], str], out_type=T.VARCHAR, key=None) -> Val:
     """Apply a host string function entry-wise to the dictionary; produce a
-    re-sorted dictionary and remap codes with one gather."""
+    re-sorted dictionary and remap codes with one gather. A `key` naming
+    the transform and its arguments memoizes it (_memo_table)."""
     d = a.dictionary
     if d is None:
         raise TypeError("varchar value lost its dictionary")
-    transformed = [fn(s) for s in d]
-    new_dict = tuple(sorted(set(transformed)))
-    index = {s: i for i, s in enumerate(new_dict)}
-    mapping = _table([index[t] for t in transformed], torch.int32, a.data)
-    return Val(_gather(mapping, a.data), a.valid, out_type, intern_dictionary(new_dict))
+
+    def build():
+        transformed = [fn(s) for s in d]
+        new_dict = tuple(sorted(set(transformed)))
+        index = {s: i for i, s in enumerate(new_dict)}
+        mapping = _table([index[t] for t in transformed], torch.int32, a.data)
+        return mapping, intern_dictionary(new_dict)
+
+    mapping, did = _memo_table(a, key, build)
+    return Val(_gather(mapping, a.data), a.valid, out_type, did)
 
 
-def _dict_predicate(a: Val, pred: Callable[[str], bool]) -> Val:
+def _dict_predicate(a: Val, pred: Callable[[str], bool], key=None) -> Val:
     d = a.dictionary
     if d is None:
         raise TypeError("varchar value lost its dictionary")
-    table = _table([bool(pred(s)) for s in d], torch.bool, a.data)
+    table = _memo_table(a, key, lambda: _table([bool(pred(s)) for s in d], torch.bool, a.data))
     return Val(_gather(table, a.data), a.valid, T.BOOLEAN)
 
 
 @register("lower", _varchar_infer)
 def _lower(a: Val, out_type: T.Type) -> Val:
-    return _dict_transform(a, str.lower)
+    return _dict_transform(a, str.lower, key="lower")
 
 
 @register("upper", _varchar_infer)
 def _upper(a: Val, out_type: T.Type) -> Val:
-    return _dict_transform(a, str.upper)
+    return _dict_transform(a, str.upper, key="upper")
 
 
 @register("length", _bigint_infer)
@@ -799,12 +833,12 @@ def _substr(a: Val, start: Val, *rest, out_type: T.Type) -> Val:
         i = s0 - 1 if s0 > 0 else len(s) + s0
         return s[i : i + ln] if ln is not None else s[i:]
 
-    return _dict_transform(a, f)
+    return _dict_transform(a, f, key=("substr", s0, ln))
 
 
 @register("trim", _varchar_infer)
 def _trim(a: Val, out_type: T.Type) -> Val:
-    return _dict_transform(a, str.strip)
+    return _dict_transform(a, str.strip, key="trim")
 
 
 @register("concat", _varchar_infer)
@@ -848,7 +882,7 @@ def _like(a: Val, pattern: Val, *rest, out_type: T.Type) -> Val:
     pat = _require_literal(pattern, "LIKE pattern")
     esc = _require_literal(rest[0], "LIKE escape") if rest else None
     rx = like_pattern_to_regex(pat, esc)
-    return _dict_predicate(a, lambda s: rx.fullmatch(s) is not None)
+    return _dict_predicate(a, lambda s: rx.fullmatch(s) is not None, key=("like", pat, esc))
 
 
 @register("strpos", _bigint_infer)
@@ -861,13 +895,13 @@ def _strpos(a: Val, needle: Val, out_type: T.Type) -> Val:
 @register("starts_with", _bool_infer)
 def _starts_with(a: Val, prefix: Val, out_type: T.Type) -> Val:
     p = _require_literal(prefix, "starts_with prefix")
-    return _dict_predicate(a, lambda s: s.startswith(p))
+    return _dict_predicate(a, lambda s: s.startswith(p), key=("starts_with", p))
 
 
 @register("ends_with", _bool_infer)
 def _ends_with(a: Val, suffix: Val, out_type: T.Type) -> Val:
     p = _require_literal(suffix, "ends_with suffix")
-    return _dict_predicate(a, lambda s: s.endswith(p))
+    return _dict_predicate(a, lambda s: s.endswith(p), key=("ends_with", p))
 
 
 def _map_infer_element(ts):

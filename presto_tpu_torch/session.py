@@ -18,9 +18,13 @@ the used catalog the first resolver of bare names. CREATE, REFRESH
 [FULL] and DROP MATERIALIZED VIEW run through matview/manager.py, and
 with PRESTO_TPU_FEEDBACK=1 a query whose plan has a frame the history
 store lacks runs once observed and records its row counts
-(plan/history.py). Not ported, raising NotPortedError: EXPLAIN (TYPE
-DISTRIBUTED) and the matmul group-by property; the JAX package's mesh
-and observability spans have no counterpart here.
+(plan/history.py). With a `mesh` (parallel/mesh.py) every plan is
+fragmented (plan/fragment.py) and runs over the mesh's workers
+(exec/dist.py), the single-process counterpart of the reference's
+DistributedQueryRunner; EXPLAIN (TYPE DISTRIBUTED) prints the fragmented
+plan and EXPLAIN ANALYZE adds an `-- exchange:` footer. Not ported,
+raising NotPortedError: the matmul group-by property; the JAX package's
+observability spans have no counterpart here.
 """
 
 from __future__ import annotations
@@ -150,6 +154,25 @@ def memory_line(ex) -> str:
     return "\n-- memory: " + ", ".join(parts)
 
 
+def exchange_line(ex) -> str:
+    """EXPLAIN ANALYZE's `-- exchange:` footer of a mesh run: the
+    repartitions (their rows, and their host time up to each count read)
+    and the bucketed joins' peak exchanged bytes per worker; empty when
+    there were none."""
+    events = ex.exchange_events
+    reparts = [e for e in events if e.get("kind") == "repartition"]
+    parts = []
+    if reparts:
+        parts.append(f"{len(reparts)} repartitions over {reparts[0]['shards']} workers, "
+                     f"{sum(e['rows'] for e in reparts):,} rows, "
+                     f"{sum(e['collective_ms'] for e in reparts):,.1f}ms to the count reads")
+    for e in events:
+        if "buckets" in e:
+            parts.append(f"grouped join buckets={e['buckets']} "
+                         f"peak {e['per_shard_bytes']:,}B/worker")
+    return "\n-- exchange: " + "; ".join(parts) if parts else ""
+
+
 def _opt_f64(values, device) -> Block:
     """Optional-float column for Page.from_dict."""
     data = np.array([0.0 if v is None else float(v) for v in values], np.float64)
@@ -211,24 +234,30 @@ class _NumberedTable:
         return self.base.column_stats(table, column)
 
 
-# the session properties this package's executors read; the others
-# (broadcast_threshold, query_priority) are accepted and shown by SHOW
-# SESSION, and read by the JAX package's mesh and admission control, not
-# ported
+# the session properties that change how this package plans or runs a
+# query (broadcast_threshold: a mesh session's join distribution); the
+# other, query_priority, is accepted and shown by SHOW SESSION, and read by
+# the JAX package's admission control, not ported
 _ENGINE_PROPERTIES = ("pallas_groupby", "dynamic_filtering", "plan_cache", "result_cache",
-                      "streaming", "batch_rows", "memory_budget")
+                      "streaming", "batch_rows", "memory_budget", "broadcast_threshold")
 
 
 class Session:
-    """One device's SQL session. `pallas_groupby` None means on, on every
+    """A SQL session on one device ("cuda" unless `device` says otherwise),
+    or over a mesh of workers (`mesh`, parallel/mesh.py; the session's
+    device is then worker 0's). `pallas_groupby` None means on, on every
     device. With `streaming`, queries run through the streaming executor
     (exec/stream.py) in batches of `batch_rows` under `memory_budget`
-    device bytes (None: no budget)."""
+    device bytes (None: no budget); a mesh takes precedence over it. Over a
+    mesh, `broadcast_threshold` picks the join distribution (None: by
+    cost, else the build rows up to which a join broadcasts) and
+    `exchange_budget` bounds a repartitioned join's exchanged bytes per
+    worker."""
 
     def __init__(
         self,
         catalog,
-        device="cuda",
+        device=None,
         access_control=None,
         user: str = "user",
         pallas_groupby=None,
@@ -238,9 +267,20 @@ class Session:
         streaming: bool = False,
         batch_rows: int = 1 << 20,
         memory_budget: Optional[int] = None,
+        mesh=None,
+        broadcast_threshold: Optional[int] = None,
+        exchange_budget: Optional[int] = None,
     ):
         self.catalog = catalog
-        self.device = resolve_device(device)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device!r} is not the mesh's worker 0 "
+                                 f"({mesh.devices[0]})")
+            device = mesh.devices[0]
+        self.device = resolve_device("cuda" if device is None else device)
+        self.mesh = mesh
+        self.broadcast_threshold = broadcast_threshold
+        self.exchange_budget = exchange_budget
         self.streaming = bool(streaming)
         self.batch_rows = int(batch_rows)
         self.memory_budget = memory_budget
@@ -265,9 +305,16 @@ class Session:
         self.matviews_mgr = MatViewManager(self)
 
     def _new_executor(self, collector=None):
-        """The engine the session runs: the streaming executor when the
-        session streams, the materializing one otherwise."""
-        if self.streaming:
+        """The engine the session runs: the distributed executor over the
+        session's mesh, else the streaming executor when the session
+        streams, else the materializing one."""
+        if self.mesh is not None:
+            from .exec.dist import DistributedExecutor
+
+            ex = DistributedExecutor(self.catalog, self.mesh, collector=collector,
+                                     exchange_budget=self.exchange_budget,
+                                     pallas_groupby=self.pallas_groupby)
+        elif self.streaming:
             from .exec.stream import StreamingExecutor
 
             ex = StreamingExecutor(self.catalog, device=self.device,
@@ -317,6 +364,10 @@ class Session:
                 streaming=engine.get("streaming", self.streaming),
                 batch_rows=engine.get("batch_rows", self.batch_rows),
                 memory_budget=engine.get("memory_budget", self.memory_budget),
+                mesh=self.mesh,
+                broadcast_threshold=engine.get("broadcast_threshold",
+                                               self.broadcast_threshold),
+                exchange_budget=self.exchange_budget,
             )
             # statement-layer state is session-wide, not per-override
             derived.views = self.views
@@ -338,21 +389,27 @@ class Session:
 
     def _plan_env_key(self):
         """Planning-relevant session state: plans keyed by the same AST
-        are only interchangeable within one catalog object, view set and
-        feedback-store generation (plan/history.py: a recorded
-        observation or an invalidation must re-plan, never reuse a plan
-        built on superseded history)."""
+        are only interchangeable within one catalog object, mesh width
+        and join-distribution setting (a mesh session's plan is
+        fragmented, a local one's is not), view set and feedback-store
+        generation (plan/history.py: a recorded observation or an
+        invalidation must re-plan, never reuse a plan built on superseded
+        history)."""
         from .plan.history import plan_env_token
 
+        mesh_n = self.mesh.size if self.mesh is not None else 0
         views_fp = tuple(sorted(self.views.items())) if self.views else ()
-        return (id(self.catalog), views_fp, plan_env_token())
+        return (id(self.catalog), mesh_n, self.broadcast_threshold, views_fp,
+                plan_env_token())
 
     def _engine_env_key(self):
         """Execution-engine identity, part of the RESULT cache key: two
         sessions only share result pages when they would execute the same
-        way on the same device."""
-        return (str(self.device), self.pallas_groupby, self.dynamic_filtering, self.streaming,
-                self.batch_rows, self.memory_budget)
+        way on the same device (or mesh)."""
+        return (type(self.executor).__name__, str(self.device),
+                None if self.mesh is None else self.mesh.devices, self.exchange_budget,
+                self.pallas_groupby, self.dynamic_filtering, self.streaming, self.batch_rows,
+                self.memory_budget)
 
     def _plan_query_uncached(self, ast: t.Query) -> N.PlanNode:
         planner = Planner(self.catalog, views=self.views)
@@ -361,7 +418,17 @@ class Session:
         titles = tuple(f.name for f in rp.scope.fields)
         from .plan.optimizer import optimize
 
-        return optimize(N.Output(rp.node, channels, titles))
+        return self._fragmented(optimize(N.Output(rp.node, channels, titles)), self.catalog)
+
+    def _fragmented(self, node: N.PlanNode, catalog) -> N.PlanNode:
+        """A mesh session's plan, fragmented for its workers
+        (plan/fragment.py); any other session's as it is."""
+        if self.mesh is None:
+            return node
+        from .plan.fragment import fragment_plan
+
+        return fragment_plan(node, catalog, self.broadcast_threshold,
+                             num_workers=self.mesh.size)
 
     def _plan_query_cached(self, ast: t.Query) -> N.PlanNode:
         """Plan via the process-wide plan cache. Entries are validated
@@ -434,7 +501,15 @@ class Session:
             walk(node)
             return self._strings_result({"Table": scans}, ("Table",))
         if etype == "distributed":
-            raise NotPortedError("not ported yet: EXPLAIN (TYPE DISTRIBUTED) needs plan/fragment.py")
+            # reference PlanPrinter.textDistributedPlan: a mesh session's
+            # plan is fragmented already (the JAX package fragments it a
+            # second time and raises); a local one is fragmented for 2
+            # workers, as there
+            if self.mesh is None:
+                from .plan.fragment import fragment_plan
+
+                node = fragment_plan(node, self.catalog, self.broadcast_threshold,
+                                     num_workers=2)
         return self._plan_lines(N.plan_tree_str(node))
 
     def _execute_plan_cached(self, node) -> QueryResult:
@@ -1183,8 +1258,8 @@ class Session:
         rp = Planner(numbered, views=self.views).plan_query(t.Query(sel), outer=None, ctes={})
         from .plan.optimizer import optimize
 
-        node = optimize(N.Output(rp.node, tuple(f.channel for f in rp.scope.fields),
-                                 (_ROW_NUMBER,)))
+        node = self._fragmented(optimize(N.Output(
+            rp.node, tuple(f.channel for f in rp.scope.fields), (_ROW_NUMBER,))), numbered)
         ex = self._new_executor()
         ex.catalog = numbered
         victims = ex.run(node)
@@ -1225,7 +1300,8 @@ class Session:
             pre_p = sum(snap["preprobe_pruned"].values())
             dyn_txt = (f"\n-- dynamic filters: {filters}; rows_pruned="
                        f"{scan_p + pre_p:,} (scan {scan_p:,}, pre-probe {pre_p:,})")
-        mem_txt = memory_line(ex) if self.streaming else ""
+        mem_txt = memory_line(ex) if self.streaming and self.mesh is None else ""
+        exch_txt = exchange_line(ex) if self.mesh is not None else ""
         # serving-cache counters: EXPLAIN ANALYZE itself always
         # re-executes, so these are the process-wide counters the
         # profiled query runs alongside
@@ -1249,7 +1325,7 @@ class Session:
         matview_txt = ""
         if self.matviews_mgr.views:
             matview_txt = "\n-- matview: " + self.matviews_mgr.format_summary()
-        return (f"{tree}{dyn_txt}{mem_txt}{cache_txt}{feedback_txt}{matview_txt}\n"
+        return (f"{tree}{dyn_txt}{mem_txt}{exch_txt}{cache_txt}{feedback_txt}{matview_txt}\n"
                 f"-- total {total_ms:,.1f}ms, peak live output {peak:,.2f}MB")
 
     def explain_analyze(self, sql: str) -> str:

@@ -16,7 +16,9 @@ Hive warehouse read on the card through the grouped bucket join against
 the same warehouse read on the CPU; the `matview` batches of chip_smoke.py
 (three materialized views over a shard store with lineitem appended in
 batches) and TPC-H Q3, Q5, Q9 and Q18 run twice with history-based
-feedback on, each on the card against the CPU (TPC-H SF 0.01).
+feedback on, each on the card against the CPU (TPC-H SF 0.01); and Q3,
+Q5, Q16 and Q18 over an 8-worker mesh on the card, broadcast and
+repartitioned, against the single-device CPU session.
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -436,7 +438,7 @@ def test_grouped_bucket_join_over_hive_on_card_equals_cpu(cuda, sessions_sf001, 
 @pytest.mark.cuda
 def test_matview_cycle_on_card_equals_cpu(cuda, tmp_path):
     """chip_smoke's `matview` batches at SF 0.01 (V1-V3 over a shard store,
-    lineitem appended in 8 batches, V1 and V2 refreshed by delta and V3 in
+    lineitem appended in MV_BATCHES batches, V1 and V2 refreshed by delta and V3 in
     full, each view held to numpy and the cached V1 text patched) on the
     card and on the CPU: every view's rows equal, kernels 1-3 launched."""
     rows = {}
@@ -491,3 +493,23 @@ def test_feedback_streamed_on_card_equals_materializing(cuda, sessions_sf001, mo
         got = stream.query(QUERIES[3]).rows()
         assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
     assert H.HISTORY.stats.snapshot()["records"] > records
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [None, 0])
+@pytest.mark.parametrize("q", [3, 5, 16, 18])
+def test_mesh_on_card_equals_cpu(cuda, sessions_sf001, threshold, q):
+    """TPC-H over an 8-worker mesh on the card (every worker on cuda:0),
+    broadcast and repartitioned joins: the rows of the single-device CPU
+    session, each worker's build and probe on the join kernels."""
+    from presto_tpu_torch.parallel import default_mesh
+
+    card, cpu = sessions_sf001
+    mesh = Session(card.catalog, mesh=default_mesh(8), broadcast_threshold=threshold,
+                   result_cache=False)
+    want = cpu.query(QUERIES[q]).rows()
+    before = jk.insert_launches, jk.probe_launches
+    got = mesh.query(QUERIES[q]).rows()
+    ordered = "order by" in QUERIES[q].lower()
+    assert chip_smoke.row_diff(got, want, ordered) is None, chip_smoke.row_diff(got, want, ordered)
+    assert jk.insert_launches > before[0] and jk.probe_launches > before[1]

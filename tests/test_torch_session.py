@@ -1,8 +1,7 @@
 """End to end: TPC-H Q1 and Q6 at SF 0.01 through presto_tpu_torch.Session
 (device="cpu") give exactly presto_tpu.Session's rows (decimals exact), and
-the port's Q1 takes the dense kernel strategy. What the port's session
-still raises NotPortedError for: EXPLAIN (TYPE DISTRIBUTED); a
-materialized view over the read-only TPC-H catalog raises WriteError, as
+the port's Q1 takes the dense kernel strategy. EXPLAIN (TYPE
+DISTRIBUTED) prints the JAX package's text; a materialized view over the read-only TPC-H catalog raises WriteError, as
 in the JAX package (tests/test_torch_matview.py holds the views); USE
 catalog.schema runs over a CatalogStore, and a USE of a catalog the
 session does not have raises ValueError, as in the JAX package."""
@@ -18,7 +17,6 @@ from presto_tpu_torch.connectors.spi import WriteError
 from presto_tpu_torch.connectors.tpch import TpchCatalog
 from presto_tpu_torch.exec.executor import ExecutionError
 from presto_tpu_torch.expr import ir
-from presto_tpu_torch.expr.functions import NotPortedError
 from presto_tpu_torch.ops import groupby_kernel as gk
 from presto_tpu_torch.plan import nodes as N
 from presto_tpu_torch.session import Session
@@ -72,8 +70,10 @@ def test_session_device_and_unported_paths(sessions):
     assert out.names[-1] == "e" and int(out.count) == 50
     with pytest.raises(WriteError, match="read-only"):
         port.query("create materialized view mv as select 1 x")
-    with pytest.raises(NotPortedError, match="not ported yet: EXPLAIN \\(TYPE DISTRIBUTED\\)"):
-        port.query("explain (type distributed) select 1")
+    # EXPLAIN (TYPE DISTRIBUTED) runs since the distributed slice: the
+    # plan fragmented for 2 workers, as the JAX package prints it
+    sql = "explain (type distributed) select l_returnflag, count(*) from lineitem group by 1"
+    assert port.query(sql).rows() == sessions[1].query(sql).rows()
     # USE catalog.schema: a catalog the session lacks raises as in the JAX
     # package; over a CatalogStore the used catalog resolves bare names
     with pytest.raises(ValueError, match="catalog 'tpch' does not exist"):

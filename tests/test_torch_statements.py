@@ -507,12 +507,10 @@ def test_explain_type_validate_and_io(tu):
 
 
 def test_explain_type_distributed_not_ported(tu):
-    """The JAX package fragments the plan (plan/fragment.py, not ported)."""
-    txt = "\n".join(r[0] for r in tu.ref.query(
-        "explain (type distributed) select count(*) from t").rows())
-    assert "Aggregate" in txt
-    with pytest.raises(NotPortedError, match="TYPE DISTRIBUTED"):
-        tu.port.query("explain (type distributed) select count(*) from t")
+    """Both packages fragment the plan (plan/fragment.py, ported since the
+    distributed slice) and print the same text."""
+    txt = "\n".join(r[0] for r in tu.q("explain (type distributed) select count(*) from t"))
+    assert "Aggregate" in txt and "Exchange [gather]" in txt
 
 
 def test_analyze_returns_row_count(tu):
