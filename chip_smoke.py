@@ -41,13 +41,18 @@ numpy splitmix64), each held against an independent numpy computation.
 Both paths must launch kernels 1-3. One warm run of each of their
 queries is then traced (device busy time, idle share, launches,
 device-to-host reads).
+After `tpch22` and `analytic` are traced, the `http22` worker processes
+and the CPU pool of `tpcds` start, and run beside every path from
+`streaming22` to `http22`.
 Then the streaming executor's paths (exec/stream.py): `streaming22`, the
 same 23 texts through a streaming session over the same catalog under a
 12 MiB device budget, each run once and held to the `tpch22` card rows (the outer
 joins of Q13, Q20 and the variant raise MemoryExceededError past the
 budget and rerun at 4x; a raise anywhere else fails), with its
 spill tags, disk bytes, hybrid parts, pool.peak and the card's peak
-allocation; then `sf10`, scale.QUERIES q6/q1/q3/q5/q17/q18 streamed from
+allocation; then the overlap check, `tpch22`'s texts warm again on the
+same session beside the pool and the workers (both sums, per text, and
+the host's load average after `tpch22` and now); then `sf10`, scale.QUERIES q6/q1/q3/q5/q17/q18 streamed from
 ChunkedTpchCatalog(10) (batches generated on the card) under 512 MiB,
 each held to numpy over the same columns generated on the host (in a
 process spawned at the start), with the card's peak allocation below the
@@ -81,7 +86,7 @@ nation, region and lineitem's first 90 % of rows (each with its TPC-H
 primary key declared), three materialized views (V1 Q1 with its mergeable
 aggregates, the aggregate kind; V2 a filtered projection of lineitem, the
 append kind; V3 Q3's join and group-by, recompute-only), then the other
-10 % of lineitem in 4 append_batch calls of 4 pages each; after each,
+10 % of lineitem in 2 append_batch calls of 4 pages each; after each,
 V1's and V2's texts run fresh (the shard store's per-version work paid
 there), REFRESH of the three (V1 and V2 delta, V3 full with its reason), each
 view against numpy over the rows ingested so far (decimals exact),
@@ -116,17 +121,37 @@ exchange budget, Q3 with PRESTO_TPU_DYNFILTER_FORCE=1 pruning rows; NOT IN
 (N1, N2) over TpcdsCatalog(1.0) through a mesh session against numpy;
 handcoded.q1_distributed over the benchmark path's lineitem page against
 its numpy Q1. Kernels 2 and 3 must launch in both regimes, in Q3 each.
+Then `http22`, the HTTP cluster data plane: two worker processes, each
+started after `tpch22` as `chip_smoke.py --http-worker 1.0` (a
+WorkerServer over its own TpchCatalog(1.0) on cuda:0, generated and
+uploaded while the paths before `http22` run, which stops and prints its kernel
+launch counts when its standard input closes), and an HttpClusterSession
+in this process over the TPC-H session's catalog: the 23 `tpch22` texts
+under the cost-based distribution and Q3, Q5, Q10, Q17 and Q18 with every
+join repartitioned through the hierarchical exchange, each cold then warm
+and held to the `tpch22` card rows, with warm ms against `tpch22`'s, wire
+bytes, pages, exchange and task ms and device-to-host copies a text, and
+Q5's ragged pages and their bytes; lineitem's SF 1 page through the wire onto
+the card under each codec and PTP1, equal to the page, with bytes, ratio,
+ms each way and copies a page; then, on a small in-process cluster on the
+card (SF 0.01), Q5 beside a fault_rate=1.0 worker equal to the CPU's rows
+with the retries seen, and a query past a worker's memory_limit killed
+with the structured "ran out of memory" TaskFailure and the pools at 0.
+Kernels 1-3 must launch in the worker processes; a worker that dies or
+exits non-zero fails the run.
 Then the TPC-DS paths, over `TpcdsCatalog(1.0)` on the card: `tpcds`, the
 103 TPC-DS texts, each cold then warm, each run held against the
-same text through the port on the CPU (computed meanwhile by five spawned
-processes over tables generated from the same seeds; rows in order, as
+same text through the port on the CPU (computed by CPU_WORKERS spawned
+processes, started after `tpch22`, over tables generated from the same
+seeds; rows in order, as
 `tpch22`), with rows, launches of kernels 1-3, walls and the CPU's
 time per text, the weak checks listed (no rows, or a ROLLUP with only its
 grand-total row), a summary line, and kernels 1-3 required; `functions`,
 one SELECT per family of the scalar function library (FUNCTION_SQL) held
 against the CPU over the same host tables; `not_in` (NOT_IN_SQL, NOT IN
-over a nullable key, against numpy). One warm run of every
-`tpcds` text above 250 ms and of every `functions` family is traced in a
+over a nullable key, against numpy). One warm run of each of the
+TRACE_TPCDS_TEXTS `tpcds` texts with the slowest warm walls and of every
+`functions` family is traced in a
 new process (`start_traces`), while the CPU side finishes.
 Then `collections` on the TPC-H SF 1 session (COLLECTION_SQL): ARRAY and
 MAP values, C1 array_agg into 10,000 suppliers (the collection-width
@@ -1262,6 +1287,41 @@ def tpch22_path(sess, cpu_sess, runs=3):
     return report
 
 
+def overlap_check(sess, tpch22, tpch22_load, cpu_rows, runs=2):
+    """`tpch22`'s texts again on the same session, each warm `runs` times
+    (best) and held to TPCH22_ROWS, while the CPU pool and the `http22`
+    workers run beside this process: the warm walls of the same texts on
+    the same host without and with that overlap. Prints both sums, their
+    ratio, the pool's finished tasks and the host's load average at each
+    point (`tpch22_load` just after `tpch22`); returns {label: warm ms}."""
+    import os
+
+    texts = tpch22_texts()
+    load = os.getloadavg()[0]
+    done = sum(f.done() for f in cpu_rows.values())
+    warm = {}
+    for label, text in texts.items():
+        walls = []
+        for _ in range(runs):
+            t = time.perf_counter()
+            rows = sess.query(text).rows()
+            walls.append((time.perf_counter() - t) * 1e3)
+            diff = row_diff(rows, TPCH22_ROWS[label])
+            if diff is not None:
+                raise AssertionError(f"overlap check {label}: {diff}")
+        warm[label] = min(walls)
+    before = sum(r["warm_ms"] for r in tpch22.values())
+    after = sum(warm.values())
+    print("phase3 overlap", json.dumps({
+        "tpch22_warm_ms_sum": before, "tpch22_load_avg_1m": tpch22_load,
+        "overlapped_warm_ms_sum": after, "ratio": after / before,
+        "overlapped_load_avg_1m": [load, os.getloadavg()[0]], "host_cores": os.cpu_count(),
+        "cpu_pool_tasks_done": [done, sum(f.done() for f in cpu_rows.values())],
+        "cpu_pool_tasks": len(cpu_rows),
+        "per_text": {q: [tpch22[q]["warm_ms"], warm[q]] for q in texts}}), flush=True)
+    return warm
+
+
 def analytic_path(sess, tables, runs=3):
     """The analytic set (ANALYTIC_SQL) through Session.query on the card,
     each held against its numpy computation. Returns {name: report}."""
@@ -1384,7 +1444,7 @@ def streaming22_path(cat, budget=STREAM_BUDGET, device="cuda"):
         if diff is not None:
             raise AssertionError(f"streaming22 {label} differs from tpch22: {diff}")
         # one run a text (a second, warm, run until the `dist22` path came:
-        # see TRACE_MIN_WARM_MS)
+        # see TRACE_TPCDS_TEXTS)
         if ladder["pool_peak"] > b:
             raise AssertionError(f"streaming22 {label}: pool.peak {ladder['pool_peak']} > {b}")
         report[label] = {"result_rows": len(rows), "budget": b, "raised": raised,
@@ -1964,11 +2024,11 @@ def files22_path(cat, want, runs=2, device="cuda"):
 
 # -- phase 3: materialized views and history-based feedback ----------------
 
-# lineitem's first 90 % of rows loaded before the batches, then 4
-# append_batch calls of 2.5 % each (80 % and 8 batches until the `dist22`
-# path came: see TRACE_MIN_WARM_MS)
+# lineitem's first 90 % of rows loaded before the batches, then 2
+# append_batch calls of 5 % each (80 % and 8 batches until the `dist22`
+# path came, 4 batches until the `http22` path came: see TRACE_TPCDS_TEXTS)
 MV_BASE_FRAC = 0.9
-MV_BATCHES = 4
+MV_BATCHES = 2
 MV_PAGES = 4  # pages per append_batch call
 # the shard store's tables and their TPC-H primary keys, declared so that
 # the planner takes n:1 joins (the probe kernel) over them
@@ -2183,8 +2243,8 @@ def matview_store(root, cat, device):
     return store, li, oracle, time.perf_counter() - t0
 
 
-def matview_batches(store, li, oracle, tables, device):
-    """Create V1-V3, then the MV_BATCHES appends, each followed by V1's
+def matview_batches(store, li, oracle, tables, device, batches=MV_BATCHES):
+    """Create V1-V3, then `batches` appends, each followed by V1's
     and V2's texts run fresh (the first touch after the append), REFRESH
     of all three (V1 and V2 delta, V3 full with its reason), the views
     against numpy over the rows so far, REFRESH FULL of V1 and V2 equal to
@@ -2205,9 +2265,9 @@ def matview_batches(store, li, oracle, tables, device):
     cached = Session(store, device=device, result_cache=True)
     cached.query(MV_SQL["v1"])
     n, n0 = int(li.count), oracle.num_rows
-    step = -(-(n - n0) // MV_BATCHES)
+    step = -(-(n - n0) // batches)
     report = []
-    for i in range(MV_BATCHES):
+    for i in range(batches):
         lo, hi = n0 + i * step, min(n0 + (i + 1) * step, n)
         cuts = [lo + (hi - lo) * j // MV_PAGES for j in range(MV_PAGES + 1)]
         pages = [_rows_page(li, a, b) for a, b in zip(cuts, cuts[1:])]
@@ -2668,10 +2728,312 @@ def dist22_path(cat, q1_page, device="cuda", n_workers=DIST_WORKERS, tpcds_sf=1.
     return report
 
 
+# -- phase 3: the HTTP cluster data plane -------------------------------------
+
+HTTP_WORKERS = 2  # worker processes, both on cuda:0
+HTTP_SF = 1.0
+HTTP_FAULT_SF = 0.01  # the in-process fault and memory checks
+# the wire checks: lineitem's page in a v2 frame as the wire sends it
+# (its encodings shrink it past the compress-once ratio, so no codec runs),
+# under each codec of a v2 frame with the codec forced, and in a PTP1 frame
+HTTP_WIRE_CAPS = {
+    "v2_default": {"version": 2, "codecs": ["lz4", "zlib", "raw"]},
+    "lz4": {"version": 2, "codecs": ["lz4", "raw"]},
+    "zlib": {"version": 2, "codecs": ["zlib", "raw"]},
+    "raw": {"version": 2, "codecs": ["raw"]},
+    "ptp1_lz4": {"version": 1, "codecs": ["lz4", "raw"]},
+}
+HTTP_BIG_SQL = ("select l_orderkey, sum(l_extendedprice * (1 - l_discount)) rev "
+                "from lineitem, orders where l_orderkey = o_orderkey "
+                "group by l_orderkey order by rev desc limit 10")
+
+
+def http_worker_main(sf) -> int:
+    """One `http22` worker process (`chip_smoke.py --http-worker SF`):
+    WorkerServer(TpchCatalog(sf, device="cuda")) with every table generated
+    and uploaded, one JSON line {"uri", "setup_s"} when it serves, then
+    serve until standard input closes; then stop and print {"counts": the
+    kernel launches of this process}."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("http22 worker: no CUDA device")
+    from presto_tpu_torch.connectors.tpch import TpchCatalog
+    from presto_tpu_torch.server import WorkerServer
+
+    t0 = time.perf_counter()
+    cat = TpchCatalog(float(sf), device="cuda")
+    for name in TPCH_TABLES + ("partsupp",):
+        cat.page(name)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    worker = WorkerServer(cat).start()
+    print(json.dumps({"uri": worker.uri, "setup_s": setup}), flush=True)
+    sys.stdin.read()
+    worker.stop()
+    print(json.dumps({"counts": _counts()}), flush=True)
+    return 0
+
+
+def start_http_workers(n=HTTP_WORKERS, sf=HTTP_SF):
+    """Start the `http22` worker processes; they generate and upload their
+    catalogs while the paths before `http22` run. Their standard error is
+    this process's."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
+                              "--http-worker", str(sf)], cwd=here, env=env,
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            for _ in range(n)]
+
+
+def http_workers_ready(procs):
+    """[(uri, setup_s)] of the started workers, once each serves."""
+    out = []
+    for p in procs:
+        line = p.stdout.readline()
+        if not line:
+            raise AssertionError(f"http22 worker {p.pid} exited with {p.wait()} before serving")
+        info = json.loads(line)
+        out.append((info["uri"], info["setup_s"]))
+    return out
+
+
+def stop_http_workers(procs, timeout=120):
+    """Close the workers' standard input, wait for them, and return each
+    one's launch counts; a worker that dies or exits non-zero fails."""
+    counts, failed = [], []
+    for p in procs:
+        if not p.stdin.closed:
+            p.stdin.close()
+    for p in procs:
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            failed.append(f"worker {p.pid} did not stop within {timeout} s")
+            continue
+        out = p.stdout.read()
+        p.stdout.close()
+        if p.returncode != 0:
+            failed.append(f"worker {p.pid} exited with {p.returncode}")
+            continue
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        counts.append(json.loads(lines[-1])["counts"])
+    if failed:
+        raise AssertionError("http22: " + "; ".join(failed))
+    return counts
+
+
+def _pages_equal(a, b):
+    """Every live value of two pages on the card equal, block by block
+    (dictionaries by their entries)."""
+    import torch
+
+    from presto_tpu_torch.page import dictionary_by_id
+
+    n = int(a.count)
+    if int(b.count) != n or a.names != b.names:
+        return f"count {int(b.count)} != {n} or names differ"
+    for name, x, y in zip(a.names, a.blocks, b.blocks):
+        if not torch.equal(x.data[:n], y.data[:n]):
+            return f"column {name} differs"
+        if (x.valid is None) != (y.valid is None) or (
+                x.valid is not None and not torch.equal(x.valid[:n], y.valid[:n])):
+            return f"column {name}'s nulls differ"
+        if (x.dict_id is None) != (y.dict_id is None) or (
+                x.dict_id is not None and tuple(dictionary_by_id(x.dict_id))
+                != tuple(dictionary_by_id(y.dict_id))):
+            return f"column {name}'s dictionary differs"
+    return None
+
+
+def http_wire_checks(cat, device="cuda"):
+    """Lineitem's SF 1 page on the card through serialize_page and
+    deserialize_page (onto the card) under each of HTTP_WIRE_CAPS (the
+    named codec forced past the compress-once ratio), each result equal to
+    the page, and the frame's codec byte that of the named codec: bytes,
+    the ratio, ms each way and the copies between the card and the host a
+    page. Returns {label: report}."""
+    import torch
+
+    from presto_tpu_torch.server.serde import WireStats, deserialize_page, serialize_page
+
+    page = cat.page("lineitem")
+    out = {}
+    for label, caps in HTTP_WIRE_CAPS.items():
+        stats = WireStats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        data = serialize_page(page, caps=caps, stats=stats,
+                              compress_once=label == "v2_default")
+        ser = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        back = deserialize_page(data, device=device, stats=stats)
+        torch.cuda.synchronize()
+        de = (time.perf_counter() - t) * 1e3
+        diff = _pages_equal(page, back)
+        if diff is not None:
+            raise AssertionError(f"http22 wire {label}: {diff}")
+        codec = {0: "raw", 1: "zlib", 2: "lz4", 3: "zstd"}[data[4]]
+        if label != "v2_default" and codec != caps["codecs"][0]:
+            raise AssertionError(f"http22 wire {label}: a {codec} frame")
+        snap = stats.snapshot()
+        out[label] = {"rows": int(page.count), "raw_bytes": snap["raw_bytes"],
+                      "wire_bytes": len(data), "ratio": snap["compression_ratio"],
+                      "serialize_ms": ser, "deserialize_ms": de,
+                      "d2h_copies": snap["d2h_copies"], "h2d_copies": snap["h2d_copies"],
+                      "encodings": snap["encodings"], "frame": bytes(data[:4]).decode(),
+                      "codec": codec}
+        del data, back
+    print("phase3 http22 wire", json.dumps(out), flush=True)
+    return out
+
+
+def http_fault_checks(device="cuda"):
+    """On a small in-process cluster (TpchCatalog(HTTP_FAULT_SF) on
+    `device`): Q5 with a worker at fault_rate=1.0 beside a healthy one
+    equals the CPU's rows and SchedulerStats shows the retry; HTTP_BIG_SQL
+    past a worker memory_limit fails with the structured "ran out of
+    memory" TaskFailure and every worker pool drains to 0."""
+    from presto_tpu_torch.benchmark.tpch_sql import QUERIES
+    from presto_tpu_torch.connectors.tpch import TpchCatalog
+    from presto_tpu_torch.server import HttpClusterSession, NodeManager, TaskFailure, WorkerServer
+    from presto_tpu_torch.session import Session
+
+    cat = TpchCatalog(HTTP_FAULT_SF, device=device)
+    want = Session(cat.with_device("cpu"), device="cpu", result_cache=False).query(
+        QUERIES[5]).rows()
+    out = {}
+    workers = [WorkerServer(TpchCatalog(HTTP_FAULT_SF, device=device)).start(),
+               WorkerServer(TpchCatalog(HTTP_FAULT_SF, device=device), fault_rate=1.0).start()]
+    try:
+        nodes = NodeManager([w.uri for w in workers], interval=3600, task_failure_threshold=50)
+        sess = HttpClusterSession(cat, nodes, result_cache=False,
+                                  scheduler_opts={"backoff_base": 0.01, "backoff_cap": 0.1})
+        rows, ms = _timed(lambda: sess.query(QUERIES[5]).rows())
+        diff = row_diff(rows, want)
+        st = sess.scheduler.stats_snapshot()
+        if diff is not None or st["task_retries"] < 1:
+            raise AssertionError(f"http22 fault_rate=1.0: {diff}, retries {st['task_retries']}")
+        out["fault_rate"] = {"ms": ms, "task_retries": st["task_retries"],
+                             "query_retries": st["query_retries"],
+                             "tasks_failed": st["tasks_failed"]}
+    finally:
+        for w in workers:
+            w.stop()
+    workers = [WorkerServer(TpchCatalog(HTTP_FAULT_SF, device=device), memory_limit=2_000).start()
+               for _ in range(2)]
+    sess = None
+    try:
+        nodes = NodeManager([w.uri for w in workers], interval=3600)
+        sess = HttpClusterSession(cat, nodes, memory_manager=True, result_cache=False)
+        t = time.perf_counter()
+        try:
+            sess.query(HTTP_BIG_SQL).rows()
+        except TaskFailure as e:
+            if "ran out of memory" not in str(e):
+                raise
+        else:
+            raise AssertionError("http22: the query past memory_limit completed")
+        killed_ms = (time.perf_counter() - t) * 1e3
+        deadline = time.time() + 10
+        while time.time() < deadline and any(w.pool.snapshot()["reserved"] for w in workers):
+            time.sleep(0.05)
+        left = [w.pool.snapshot()["reserved"] for w in workers]
+        if any(left) or not sess.memory_manager.killed:
+            raise AssertionError(f"http22 low-memory kill: pools {left}, "
+                                 f"killed {sess.memory_manager.killed}")
+        out["memory_kill"] = {"ms": killed_ms, "killed": sess.memory_manager.killed,
+                              "pools_after": left}
+    finally:
+        if sess is not None:
+            sess.close()
+        for w in workers:
+            w.stop()
+    print("phase3 http22 faults", json.dumps(out), flush=True)
+    return out
+
+
+def http22_path(cat, procs, tpch22=None, device="cuda"):
+    """The `http22` path: HttpClusterSession over the worker processes of
+    start_http_workers (each WorkerServer(TpchCatalog(HTTP_SF)) on the
+    card), the coordinator in this process over `cat`: (a) the 23 tpch22
+    texts under the cost-based distribution and (b) DIST_REPARTITIONED
+    with every join repartitioned, each cold then warm and held to
+    TPCH22_ROWS, with warm ms against `tpch22`'s, wire bytes and exchange
+    ms a text, and Q5's ragged pages; (c) http_wire_checks; (d)
+    http_fault_checks. The workers stop at the end; their launch counts
+    are returned per worker with the report."""
+    from presto_tpu_torch.server import HttpClusterSession, NodeManager
+
+    report = {}
+    try:
+        ready = http_workers_ready(procs)
+        print("phase3 http22 workers", json.dumps(
+            [{"uri": u, "catalog_setup_s": s} for u, s in ready]), flush=True)
+        nodes = NodeManager([u for u, _ in ready], interval=3600)
+        texts = tpch22_texts()
+        for part, threshold, labels in (("cost", None, list(texts)),
+                                        ("repartitioned", 0, DIST_REPARTITIONED)):
+            sess = HttpClusterSession(cat, nodes, broadcast_threshold=threshold,
+                                      result_cache=False)
+            runs = {}
+            for label in labels:
+                text = texts[label]
+                cold, warm, launches, rows = _timed_runs(
+                    lambda text=text: sess.query(text).rows(), 2,
+                    lambda got, label=label, text=text: row_diff(
+                        got, TPCH22_ROWS[label], _ordered(text)),
+                    f"http22 {part} {label} against the tpch22 card rows")
+                st = sess.scheduler.stats_snapshot()
+                wire = st["wire"]
+                runs[label] = {
+                    "result_rows": len(rows), "cold_ms": cold, "warm_ms": warm,
+                    "tpch22_warm_ms": (tpch22 or {}).get(label, {}).get("warm_ms"),
+                    "wire_bytes": wire.get("wire_bytes"), "raw_bytes": wire.get("raw_bytes"),
+                    "pages": wire.get("pages"), "exchange_ms": wire.get("pull_ms"),
+                    "consumer_wait_ms": wire.get("wait_ms"), "task_exec_ms": wire.get("exec_ms"),
+                    "task_emit_ms": wire.get("emit_ms"),
+                    "encode_ms": wire.get("encode_ms"), "d2h_copies": wire.get("d2h_copies"),
+                    "coordinator_launches": launches,
+                    "query_retries": st["query_retries"], "task_retries": st["task_retries"]}
+                if part == "repartitioned" and label == "Q5":
+                    runs[label]["hier"] = st["hier"]
+                    if not st["hier"].get("wire_pages"):
+                        raise AssertionError(f"http22 repartitioned Q5 shipped no ragged "
+                                             f"pages: {st['hier']}")
+                print(f"phase3 http22 {part} {label}", json.dumps(runs[label]), flush=True)
+            report[part] = runs
+        report["wire"] = http_wire_checks(cat, device)
+        report["faults"] = http_fault_checks(device)
+    finally:
+        worker_counts = stop_http_workers(procs)
+    print("phase3 http22 worker launches", json.dumps(worker_counts), flush=True)
+    for k in ("groupby_partials", "join_insert", "join_probe"):
+        if sum(c[k] for c in worker_counts) < 1:
+            raise AssertionError(f"http22: no worker process launched {k}: {worker_counts}")
+    cost = report["cost"]
+    print("phase3 http22 summary", json.dumps({
+        "workers": len(worker_counts), "texts": len(cost),
+        "warm_ms_total": sum(r["warm_ms"] for r in cost.values()),
+        "tpch22_warm_ms_total": sum(r["tpch22_warm_ms"] or 0.0 for r in cost.values()),
+        "wire_bytes_total": sum(r["wire_bytes"] or 0 for r in cost.values())}), flush=True)
+    return report, worker_counts
+
+
 # -- phase 3: TPC-DS at SF 1, and the scalar function library ---------------
 
 TPCDS_SF = 1.0
-CPU_WORKERS = 5  # processes computing the CPU side of `tpcds` (8 host cores)
+# processes computing the CPU side of `tpcds` (8 host cores). They start
+# after `tpch22` and overlap the paths from `streaming22` to `http22`,
+# beside this process and the `http22` workers: 3 (5 when the pool started
+# at `tpcds`) finish the ~1,370 s of CPU before `tpcds` needs it and leave
+# the overlapped paths more of the cores; `phase3 overlap` measures the cost
+CPU_WORKERS = 3
 # the TPC-DS texts slowest on the CPU (some over a minute at SF 1 on one
 # core), submitted to the pool first
 CPU_SLOW_FIRST = ("Q14", "Q22", "Q39", "Q139", "Q114", "Q4", "Q123", "Q23", "Q64", "Q11",
@@ -2683,14 +3045,20 @@ CPU_SLOW_FIRST = ("Q14", "Q22", "Q39", "Q139", "Q114", "Q4", "Q123", "Q23", "Q64
 # ss_store_sk, a foreign key the generator leaves NULL in about 4 % of rows
 TPCDS_CAPTURE = ("Q3", "Q5", "Q7", "Q14", "Q18", "Q21", "Q22", "Q27", "Q36", "Q37", "Q39",
                  "Q67", "Q70", "Q72", "Q76", "Q77", "Q80", "Q82", "Q86", "math", "bitwise")
-# `tpcds` traces every query whose warm wall is above this. 20 ms traced
-# 91 of the 103 texts on the H100; with the `dist22` path the script came
-# within 140 s of its time limit, and the traces (a cold and a profiled
-# run each, in their own process) were its longest step: 250 ms (about
-# the p90) traces the 18 slowest. The same cut runs each `tpcds` text
-# once warm after its cold run (twice before), each `streaming22` text
-# once (twice before) and `matview` in 4 batches (8 before).
-TRACE_MIN_WARM_MS = 250.0
+# `tpcds` traces the texts with the slowest warm walls, this many. Every
+# text above 20 ms traced 91 of the 103 on the H100; with the `dist22` path
+# the script came within 140 s of its time limit, and the traces (a cold
+# and a profiled run each, in their own process) were its longest step, so
+# only texts above 250 ms were traced, 15-20 of them. When walls grow more
+# texts pass a fixed threshold and the step grows with them (72-137 s of
+# traces over the runs that added the `http22` path, whose whole script
+# took 828-1,190 s on the same code, within 11 s of the limit; those runs
+# did not tell a slower host from the overlap with the CPU pool, which
+# then started after phase 1), so a fixed count. The same cuts
+# run each `tpcds` text once warm after its cold run (twice before
+# `dist22`), each `streaming22` text once (twice before `dist22`) and
+# `matview` in 2 batches (8 before `dist22`, 4 before `http22`).
+TRACE_TPCDS_TEXTS = 6
 
 
 def make_tpcds_session(sf=TPCDS_SF, device="cuda"):
@@ -4373,6 +4741,8 @@ def check_params_layout():
 
 
 def main() -> int:
+    import os
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4393,7 +4763,8 @@ def main() -> int:
     print(f"phase1 built {len(logs)} kernel libraries in {secs:.3f} s", flush=True)
     check_params_layout()
 
-    # sf10's numpy checks in a new process, overlapping the paths before it
+    # sf10's numpy checks run in a new process, overlapping the paths
+    # before sf10
     sf10_pool, sf10_future = start_sf10_expect()
     sess, cat = make_session()
     tables = {name: cat.host_table(name) for name in TPCH_TABLES}
@@ -4446,6 +4817,7 @@ def main() -> int:
     _zero_counts()
     tpch22 = tpch22_path(sess, cpu_sess)
     path_counts["tpch22"] = _counts()
+    tpch22_load = os.getloadavg()[0]
     del cpu_sess
     _zero_counts()
     analytic = analytic_path(sess, tables)
@@ -4461,6 +4833,16 @@ def main() -> int:
     trace_paths(sess, tpch22, analytic)
     print(f"phase3 tpch22 and analytic traced in {time.perf_counter() - t0:.3f} s", flush=True)
 
+    # after the yardstick of the TPC-H paths that follow (`tpch22`'s warm
+    # walls), the `http22` worker processes generate their catalogs and the
+    # pool of new processes computes the CPU rows of `tpcds`, `collections`
+    # and `statements`, both overlapping the paths from `streaming22` to
+    # `http22`; overlap_check measures what that overlap costs
+    http_procs = start_http_workers()
+    _CLEANUP.append(lambda: [p.kill() for p in http_procs if p.poll() is None])
+    pool, cpu_rows = start_cpu_rows(tpcds_texts(), tpch_texts=COLLECTION_SQL, statements=True)
+    _CLEANUP.append(lambda: pool.shutdown(cancel_futures=True))
+
     # phase 3, the streaming executor (exec/stream.py): the 22 texts over
     # the same catalog under a device budget that forces every rung of the
     # ladder, then SF 10 streamed from the chunked catalog; the counts at 0
@@ -4471,6 +4853,7 @@ def main() -> int:
     path_counts["streaming22"] = _counts()
     print(f"phase3 streaming22 launches {json.dumps(path_counts['streaming22'])} in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    overlap_check(sess, tpch22, tpch22_load, cpu_rows)
     t0 = time.perf_counter()
     _zero_counts()
     try:
@@ -4533,21 +4916,31 @@ def main() -> int:
         if path_counts["dist22"][k] < 1:
             raise AssertionError(f"the dist22 path did not launch {k}")
 
+    # phase 3, the HTTP cluster data plane: HttpClusterSession over the two
+    # worker processes started after `tpch22` (their counts start at 0 and
+    # count only this path), the counts here at 0 just before it
+    t0 = time.perf_counter()
+    _zero_counts()
+    _http, worker_counts = http22_path(cat, http_procs, tpch22)
+    path_counts["http22"] = {k: v + sum(c[k] for c in worker_counts)
+                             for k, v in _counts().items()}
+    print(f"phase3 http22 launches {json.dumps(path_counts['http22'])} (workers "
+          f"{json.dumps(worker_counts)}) in {time.perf_counter() - t0:.3f} s", flush=True)
+
     # phase 3, TPC-DS at SF 1: the 103 texts on the card, then the scalar
     # function library against the CPU over the same host tables, the
     # counts at 0 just before each path; then one traced warm run of each
-    # in a new process, while a pool of new processes finishes the TPC-DS
-    # texts on the CPU for the comparison
+    # in a new process, while the pool started after `tpch22` finishes the
+    # TPC-DS texts on the CPU for the comparison
     import tempfile
 
     t0 = time.perf_counter()
     ds_texts = tpcds_texts()
-    pool, cpu_rows = start_cpu_rows(ds_texts, tpch_texts=COLLECTION_SQL, statements=True)
     try:
         ds_sess, ds_cat = make_tpcds_session()
         _zero_counts()
         # cold and one warm run a text (two warm runs until the `dist22`
-        # path came; see TRACE_MIN_WARM_MS)
+        # path came; see TRACE_TPCDS_TEXTS)
         tpcds, outs = tpcds_card_runs(ds_sess, runs=2)
         path_counts["tpcds"] = _counts()
         ds_cpu = Session(ds_cat.with_device("cpu"), device="cpu", result_cache=False)
@@ -4561,8 +4954,8 @@ def main() -> int:
         for k in ("join_insert", "join_probe"):
             if path_counts["not_in"][k] < 1:
                 raise AssertionError(f"the not_in path did not launch {k}")
-        items = [("tpcds", q, ds_texts[q], r["warm_ms"]) for q, r in tpcds.items()
-                 if r["warm_ms"] > TRACE_MIN_WARM_MS]
+        slowest = sorted(tpcds, key=lambda q: -tpcds[q]["warm_ms"])[:TRACE_TPCDS_TEXTS]
+        items = [("tpcds", q, ds_texts[q], tpcds[q]["warm_ms"]) for q in slowest]
         items += [("functions", f, FUNCTION_SQL[f], r["warm_ms"])
                   for f, r in functions.items()]
         # the `collections` path on the TPC-H SF 1 session (its CPU rows
@@ -4685,5 +5078,15 @@ def main() -> int:
     return 0
 
 
+# stops the processes main() started, whatever path failed
+_CLEANUP = []
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--http-worker"]:
+        sys.exit(http_worker_main(sys.argv[2]))
+    try:
+        rc = main()
+    finally:
+        for stop in _CLEANUP:
+            stop()
+    sys.exit(rc)

@@ -1,5 +1,5 @@
 """Runtime dynamic filters: build-side summaries pushed into probe scans
-(torch counterpart of the single-process half of presto_tpu/exec/dynfilter.py).
+(torch counterpart of presto_tpu/exec/dynfilter.py).
 
 Re-designed equivalent of the reference's dynamic filtering stack
 (presto-main/.../operator/DynamicFilterSourceOperator collecting build-side
@@ -17,13 +17,19 @@ strategy follows the build side's real cardinality:
 Probe rows with NULL keys are pruned too (NULL never equi-matches); the
 planner annotates only inner joins and plain semi joins, where dropping
 non-matching probe rows early is an identity on the result.
+
+Across the tasks of an HTTP cluster (server/), each build-stage task sums
+its output in a HostFilterAccumulator, the coordinator merges the
+summaries (`merge_summaries`) and ships the filter in the probe stage's
+specs (`filter_from_summary`). A summary that is not of the accumulator's
+shape raises; a missing or late one leaves the filter out.
 """
 
 from __future__ import annotations
 
 import base64
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -258,6 +264,25 @@ class HostFilterAccumulator:
         self.log2_bits = choose_log2_bits(in_list_limit() * 4)
         self.unsupported = False
 
+    def add_page(self, page) -> None:
+        """Accumulate the live rows of a page's channel (a worker's output
+        pages, the build side of a join in another task). A page without
+        the channel makes the summary unsupported."""
+        if self.unsupported:
+            return
+        if self.channel not in page.names:
+            self.unsupported = True
+            return
+        b = page.block(self.channel)
+        if b.data.ndim != 1 or isinstance(b.type, T.VarcharType) or not _is_ordered_storage(
+                b.type):
+            self.unsupported = True  # refused by type, before any transfer
+            return
+        n = int(page.count)
+        data = b.data[:n].cpu().numpy()
+        valid = None if b.valid is None else b.valid[:n].cpu().numpy()
+        self.add_numpy(data, valid, b.type)
+
     def add_numpy(self, data: np.ndarray, valid, typ) -> None:
         """Accumulate raw host columns."""
         if self.unsupported:
@@ -333,6 +358,60 @@ def _json_scalar(v):
     return int(v)
 
 
+def merge_summaries(parts: List[Optional[dict]]) -> Optional[dict]:
+    """Merge per-task summaries (min of lo, max of hi, union of value sets,
+    OR of blooms; a part that fell back to a bloom forces a bloom). A
+    missing part means a task's keys are unaccounted for, so no filter can
+    be trusted: None (no false negatives, ever)."""
+    if not parts or any(not p for p in parts):
+        return None
+    for p in parts:
+        _check_summary(p)
+    out = dict(parts[0])
+    for p in parts[1:]:
+        if p.get("type") != out.get("type"):
+            return None
+        out["count"] = out.get("count", 0) + p.get("count", 0)
+        for k, pick in (("lo", min), ("hi", max)):
+            a, b = out.get(k), p.get(k)
+            out[k] = pick(a, b) if a is not None and b is not None else (a if b is None else b)
+        if "values" in out and "values" in p:
+            merged = sorted(set(out["values"]) | set(p["values"]))
+            if len(merged) <= in_list_limit():
+                out["values"] = merged
+                continue
+        # membership degrades to an OR of blooms (value parts convert by
+        # re-hashing before they are dropped)
+        wa = _words_of(out)
+        wb = _words_of(p)
+        out.pop("values", None)
+        if wa is None or wb is None or len(wa) != len(wb):
+            out.pop("bloom_b64", None)
+            out.pop("log2_bits", None)
+        else:
+            out["bloom_b64"] = base64.b64encode((wa | wb).astype(np.uint32).tobytes()).decode()
+            out["log2_bits"] = (out.get("log2_bits") or p.get("log2_bits")
+                                or choose_log2_bits(in_list_limit() * 4))
+    out["empty"] = out.get("count", 0) == 0
+    if (not out.get("empty") and "values" not in out and "bloom_b64" not in out
+            and out.get("lo") is None):
+        return None
+    return out
+
+
+def _check_summary(summary) -> None:
+    """A summary off the wire must have the shape HostFilterAccumulator
+    writes; anything else raises ValueError."""
+    if not isinstance(summary, dict) or not isinstance(summary.get("count", 0), int):
+        raise ValueError(f"malformed dynamic-filter summary: {summary!r:.200}")
+    if "bloom_b64" in summary and not isinstance(summary.get("log2_bits"), int):
+        raise ValueError("malformed dynamic-filter summary: a bloom without log2_bits")
+    if "values" in summary and not isinstance(summary["values"], list):
+        raise ValueError("malformed dynamic-filter summary: values is not a list")
+    if (summary.get("lo") is None) != (summary.get("hi") is None):
+        raise ValueError("malformed dynamic-filter summary: one bound without the other")
+
+
 def _words_of(summary: dict) -> Optional[np.ndarray]:
     """The uint32 bloom words of a summary; a pure value set converts by
     hashing at the key's STORAGE width (REAL keys hash their float32 bit
@@ -357,6 +436,7 @@ def filter_from_summary(summary: Optional[dict], key_type, device="cpu") -> Opti
     """A device-queryable DynamicFilter from a host summary."""
     if summary is None:
         return None
+    _check_summary(summary)
     if summary.get("empty"):
         return DynamicFilter("minmax", 0, empty_build=True)
     device = torch.device(device)

@@ -23,8 +23,11 @@ offload path at the next batch boundary and then call `note_revoked`.
 
 Over-frees (freeing more than is reserved) are COUNTED, not silently
 clamped away: a nonzero `over_frees` is a double-free accounting bug.
-The JAX package's parent mirroring into a worker's memory pool waits for
-the server port (ROADMAP queue 1 item 9).
+
+On a cluster worker a pool mirrors its reservations into the worker's
+WorkerMemoryPool (`parent`, server/worker.py), whose execution ledger
+`/v1/memory` and the cluster memory manager read, and whose revoking
+scheduler asks the largest `revocable_bytes()` first.
 """
 
 from __future__ import annotations
@@ -44,9 +47,12 @@ GLOBAL_ACCOUNTING = {"over_frees": 0, "over_freed_bytes": 0}
 
 
 class MemoryPool:
-    def __init__(self, max_bytes: Optional[int] = None, name: str = "query"):
+    def __init__(self, max_bytes: Optional[int] = None, name: str = "query",
+                 parent=None, query_id: str = ""):
         self.max_bytes = max_bytes
         self.name = name
+        self.parent = parent  # server.worker.WorkerMemoryPool, or None
+        self.query_id = query_id or name
         self.reserved = 0
         self.peak = 0
         self.over_frees = 0
@@ -78,6 +84,8 @@ class MemoryPool:
             )
         self.reserved += nbytes
         self.peak = max(self.peak, self.reserved)
+        if self.parent is not None:
+            self.parent.reserve_execution(self.query_id, nbytes)
         return nbytes
 
     def free(self, nbytes: int) -> None:
@@ -89,6 +97,8 @@ class MemoryPool:
             GLOBAL_ACCOUNTING["over_freed_bytes"] += over
             nbytes = self.reserved
         self.reserved -= nbytes
+        if self.parent is not None and nbytes:
+            self.parent.free_execution(self.query_id, nbytes)
 
     # -- revocation (cooperative; see exec/stream.py accumulators) --
 
@@ -118,6 +128,11 @@ class MemoryPool:
         if self._revoke_requested_at is not None:
             self._revoke_requested_at = None
             self.revocations += 1
+
+    def revocable_bytes(self) -> int:
+        """Bytes a revoke could free: accumulator-held pages plus reserved
+        operator state (the worker revokes the largest first)."""
+        return self.accumulated + self.reserved
 
     def snapshot(self) -> dict:
         return {

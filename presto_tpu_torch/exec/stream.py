@@ -228,12 +228,16 @@ class StreamingExecutor:
 
     def __init__(self, catalog, device="cuda", batch_rows: int = 1 << 20,
                  memory_budget: Optional[int] = None, collector=None,
-                 pallas_groupby: bool = True):
+                 pallas_groupby: bool = True, query_id: str = "", worker_pool=None,
+                 spill_space=None):
         self._catalog = catalog
         self.device = torch.device(device)
         self.batch_rows = batch_rows
-        self.query_id = f"local-{id(self):x}"
-        self.pool = MemoryPool(memory_budget, name=self.query_id)
+        self.query_id = query_id or f"local-{id(self):x}"
+        # on a cluster worker the pool mirrors into the worker's ledger
+        # (server/worker.py WorkerMemoryPool)
+        self.pool = MemoryPool(memory_budget, name=self.query_id, parent=worker_pool,
+                               query_id=self.query_id)
         self.local = Executor(catalog, device=self.device, collector=collector,
                               pallas_groupby=pallas_groupby)
         self.collector = collector
@@ -259,7 +263,9 @@ class StreamingExecutor:
             "agg_hash_batches": 0,
             "agg_dense_batches": 0,
         }
-        self._spill_space = None  # opened at the first spill of a query
+        # opened at the first spill of a query, or given by a worker task
+        # (which releases it)
+        self._spill_space = spill_space
 
     @property
     def catalog(self):

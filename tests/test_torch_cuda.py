@@ -18,7 +18,10 @@ the same warehouse read on the CPU; the `matview` batches of chip_smoke.py
 batches) and TPC-H Q3, Q5, Q9 and Q18 run twice with history-based
 feedback on, each on the card against the CPU (TPC-H SF 0.01); and Q3,
 Q5, Q16 and Q18 over an 8-worker mesh on the card, broadcast and
-repartitioned, against the single-device CPU session.
+repartitioned, against the single-device CPU session; lineitem's page
+through the wire onto the card and back (two device-to-host copies, one
+host-to-device), and Q1, Q3, Q5 and Q18 through a two-worker HTTP cluster
+on the card, broadcast and repartitioned, against the CPU session.
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -438,7 +441,7 @@ def test_grouped_bucket_join_over_hive_on_card_equals_cpu(cuda, sessions_sf001, 
 @pytest.mark.cuda
 def test_matview_cycle_on_card_equals_cpu(cuda, tmp_path):
     """chip_smoke's `matview` batches at SF 0.01 (V1-V3 over a shard store,
-    lineitem appended in MV_BATCHES batches, V1 and V2 refreshed by delta and V3 in
+    lineitem appended in 4 batches, V1 and V2 refreshed by delta and V3 in
     full, each view held to numpy and the cached V1 text patched) on the
     card and on the CPU: every view's rows equal, kernels 1-3 launched."""
     rows = {}
@@ -447,11 +450,11 @@ def test_matview_cycle_on_card_equals_cpu(cuda, tmp_path):
         tables = {n: cat.host_table(n) for n in chip_smoke.TPCH_TABLES}
         store, li, oracle, _s = chip_smoke.matview_store(str(tmp_path / dev), cat, dev)
         before = gk.launches, jk.insert_launches, jk.probe_launches
-        sess, report = chip_smoke.matview_batches(store, li, oracle, tables, dev)
+        sess, report = chip_smoke.matview_batches(store, li, oracle, tables, dev, batches=4)
         if dev == "cuda":
             assert all(after > b for after, b in zip(
                 (gk.launches, jk.insert_launches, jk.probe_launches), before))
-        assert len(report) == chip_smoke.MV_BATCHES
+        assert len(report) == 4
         rows[dev] = {v: sess.query(f"select * from {v}").rows() for v in chip_smoke.MV_SQL}
     for v in chip_smoke.MV_SQL:
         diff = chip_smoke.row_diff(rows["cuda"][v], rows["cpu"][v], ordered=(v == "v1"))
@@ -513,3 +516,63 @@ def test_mesh_on_card_equals_cpu(cuda, sessions_sf001, threshold, q):
     ordered = "order by" in QUERIES[q].lower()
     assert chip_smoke.row_diff(got, want, ordered) is None, chip_smoke.row_diff(got, want, ordered)
     assert jk.insert_launches > before[0] and jk.probe_launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [{"version": 2, "codecs": ["lz4", "raw"]},
+                                  {"version": 2, "codecs": ["zlib", "raw"]},
+                                  {"version": 1, "codecs": ["lz4", "raw"]}],
+                         ids=["v2-lz4", "v2-zlib", "v1-lz4"])
+def test_wire_roundtrip_on_card(cuda, sessions_sf001, caps):
+    """Lineitem's page on the card through serialize_page and
+    deserialize_page onto the card: its frame under the named codec,
+    equal, in two device-to-host copies and one host-to-device copy."""
+    from presto_tpu_torch.server.serde import WireStats, deserialize_page, serialize_page
+
+    page = sessions_sf001[0].catalog.page("lineitem")
+    stats = WireStats()
+    # the codec runs even where the encodings alone made the body compact
+    data = serialize_page(page, caps=caps, stats=stats, compress_once=False)
+    assert data[4] == {"zlib": 1, "lz4": 2}[caps["codecs"][0]]
+    back = deserialize_page(data, device="cuda", stats=stats)
+    assert back.device.type == "cuda"
+    assert chip_smoke._pages_equal(page, back) is None
+    snap = stats.snapshot()
+    assert snap["d2h_copies"] == 2 and snap["h2d_copies"] == 1
+
+
+@pytest.fixture(scope="module")
+def http_cluster_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from presto_tpu_torch.server import NodeManager, WorkerServer
+
+    workers = [WorkerServer(TpchCatalog(0.01, device="cuda")).start() for _ in range(2)]
+    try:
+        yield NodeManager([w.uri for w in workers], interval=3600)
+    finally:
+        for w in workers:
+            w.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [None, 0])
+@pytest.mark.parametrize("q", [1, 3, 5, 18])
+def test_http_cluster_on_card_equals_cpu(cuda, sessions_sf001, http_cluster_on_card,
+                                         threshold, q):
+    """TPC-H through a two-worker HTTP cluster on the card (in-process
+    workers on cuda:0, pages on the PTP2 wire): the rows of the CPU
+    session, the workers' joins on the join kernels."""
+    from presto_tpu_torch.server import HttpClusterSession
+
+    card, cpu = sessions_sf001
+    sess = HttpClusterSession(card.catalog, http_cluster_on_card, broadcast_threshold=threshold,
+                              result_cache=False)
+    want = cpu.query(QUERIES[q]).rows()
+    before = jk.insert_launches, gk.launches
+    got = sess.query(QUERIES[q]).rows()
+    assert chip_smoke.row_diff(got, want) is None, chip_smoke.row_diff(got, want)
+    if q != 1:
+        assert jk.insert_launches > before[0]
+    else:
+        assert gk.launches > before[1]
