@@ -41,9 +41,25 @@ numpy splitmix64), each held against an independent numpy computation.
 Both paths must launch kernels 1-3. One warm run of each of their
 queries is then traced (device busy time, idle share, launches,
 device-to-host reads).
-After `tpch22` and `analytic` are traced, the `http22` worker processes
-and the CPU pool of `tpcds` start, and run beside every path from
-`streaming22` to `http22`.
+Then `coordinator`, the control plane on the same session: a
+CoordinatorServer over it (wrapped over SystemCatalog, one query at a
+time) and a Client; the 23 `tpch22` texts through POST /v1/statement and
+their nextUri pages, cold then warm, each held to the `tpch22` card rows
+as the JSON carries them, with warm ms against `tpch22`'s, phase ms and
+trace id; the 9-key self-join of lineitem and its EXISTS form (past the
+probe kernel's 8 keys), each lineitem's row count; with the admission
+gate shut, a query waiting in the resource group's queue, the next
+rejected (queue full) and the waiting one cancelled by DELETE; reads of
+system.runtime.queries, tasks and metrics that find the texts just run;
+EXPLAIN ANALYZE of Q5 with its `-- trace:` and `-- kernels:` footers,
+every launch of kernels 1-3 timed by a CUDA-event pair. The path must
+launch kernels 1-3. Then the cost of tracing (`phase3 coordinator
+trace`): Q1, Q3, Q5, Q10, Q18 and Q21 warm with PRESTO_TPU_TRACE=0 and
+=1 alternating, two runs of each, and Q5's host syncs under
+torch.cuda.set_sync_debug_mode with tracing on and off, which must be
+equal.
+After `coordinator`, the `http22` worker processes and the CPU pool of
+`tpcds` start, and run beside every path from `streaming22` to `http22`.
 Then the streaming executor's paths (exec/stream.py): `streaming22`, the
 same 23 texts through a streaming session over the same catalog under a
 12 MiB device budget, each run once and held to the `tpch22` card rows (the outer
@@ -131,7 +147,13 @@ under the cost-based distribution and Q3, Q5, Q10, Q17 and Q18 with every
 join repartitioned through the hierarchical exchange, each cold then warm
 and held to the `tpch22` card rows, with warm ms against `tpch22`'s, wire
 bytes, pages, exchange and task ms and device-to-host copies a text, and
-Q5's ragged pages and their bytes; lineitem's SF 1 page through the wire onto
+Q5's ragged pages and their bytes; the repartitioned Q5 and the
+cost-based Q10 served through a CoordinatorServer over those sessions
+and held to the `tpch22` card rows, each stage's consumer wait from the
+merged trace split into the pullers' HTTP and decode walls and the
+producers' executor, emit and encode walls and their results handlers'
+serving walls (wait_split), and one worker's /v1/metrics holding the
+exchange and kernel series; lineitem's SF 1 page through the wire onto
 the card under each codec and PTP1, equal to the page, with bytes, ratio,
 ms each way and copies a page; then, on a small in-process cluster on the
 card (SF 0.01), Q5 beside a fault_rate=1.0 worker equal to the CPU's rows
@@ -1357,6 +1379,283 @@ def trace_paths(sess, tpch22, analytic):
         print(f"phase3 analytic {name}", json.dumps(rep), flush=True)
 
 
+# -- phase 3: the coordinator's control plane (server/coordinator.py) -------
+
+# admission of the `coordinator` path: one query runs, one waits, the next
+# is rejected; a gate the path holds shut keeps its queue test deterministic
+COORD_GROUPS = {"name": "global", "hard_concurrency_limit": 1, "max_queued": 1}
+NINE_KEYS = ("l_orderkey", "l_linenumber", "l_partkey", "l_suppkey", "l_quantity",
+             "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+_NINE_ON = " and ".join(f"a.{k} = b.{k}" for k in NINE_KEYS)
+# a self-join of lineitem on 9 keys (past the probe kernel's 8: the build
+# takes the sorted-hash layout), and its EXISTS form; both count lineitem,
+# since the keys hold (l_orderkey, l_linenumber)
+NINE_KEY_SQL = {
+    "join9": f"select count(*) from lineitem a join lineitem b on {_NINE_ON}",
+    "exists9": ("select count(*) from lineitem a where exists (select 1 from lineitem b "
+                f"where {_NINE_ON})"),
+}
+TRACE_COST_TEXTS = ("Q1", "Q3", "Q5", "Q10", "Q18", "Q21")
+_KERNEL_LINE = r"(groupby_partials|join_insert|join_probe|q1_partials) (\d+) \((\d+) timed, ([\d,.]+)ms device\)"
+
+
+def json_rows(rows):
+    """Rows as the coordinator's QueryResults JSON carries them (decimals
+    and dates as strings, NULL as null), for comparing a Client's rows
+    with a Session's."""
+    from presto_tpu_torch.server.coordinator import _json_default
+
+    return json.loads(json.dumps([list(r) for r in rows], default=_json_default))
+
+
+def coord_run(client, srv, sql):
+    """(rows, wall ms, QueryInfo) of `sql` through POST /v1/statement and
+    its nextUri pages."""
+    t = time.perf_counter()
+    _cols, rows = client.execute(sql)
+    ms = (time.perf_counter() - t) * 1e3
+    info = max((i for i in srv.manager.list_queries() if i.sql == sql),
+               key=lambda i: i.created_at)
+    return rows, ms, info
+
+
+def kernel_footer(text):
+    """{kernel: (launches, timed, device ms)} of an EXPLAIN ANALYZE's
+    `-- kernels:` footer."""
+    import re
+
+    line = next((ln for ln in text.split("\n") if ln.startswith("-- kernels: ")), "")
+    return {m.group(1): (int(m.group(2)), int(m.group(3)), float(m.group(4).replace(",", "")))
+            for m in re.finditer(_KERNEL_LINE, line)}
+
+
+def _post(uri, sql):
+    import urllib.request
+
+    req = urllib.request.Request(uri + "/v1/statement", data=sql.encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def coordinator_admission(srv, gate, client, sql):
+    """With the admission gate shut: a query waits in the group's queue,
+    the next is rejected (queue full), the waiting one is cancelled by
+    DELETE; then the gate opens and `sql` runs. Returns the states seen."""
+    gate.set()
+    try:
+        waiting = _post(srv.uri, sql)
+        rejected = _post(srv.uri, sql)
+        cancelled = client.cancel(waiting["id"])
+    finally:
+        gate.clear()
+    info_w = srv.manager.get(waiting["id"])
+    info_r = srv.manager.get(rejected["id"])
+    out = {"waiting_state": info_w.state, "rejected_state": info_r.state,
+           "rejected_error": (info_r.error or "")[:120], "cancelled": cancelled,
+           "deferrals": srv.manager.groups.pressure_deferrals}
+    if not (cancelled and info_w.state == "CANCELED" and info_r.state == "FAILED"
+            and "queue full" in (info_r.error or "")):
+        raise AssertionError(f"coordinator admission: {out}")
+    return out
+
+
+def coordinator_path(sess, cat, tpch22, runs=2):
+    """The `coordinator` path: a CoordinatorServer over the TPC-H session
+    (wrapped over SystemCatalog, on the card), one query at a time, and a
+    Client: the 23 `tpch22` texts through POST /v1/statement, cold then
+    warm, each held to TPCH22_ROWS (as the JSON carries them), with the
+    warm ms against `tpch22`'s, phase ms and trace id; the 9-key self-join
+    of lineitem and its EXISTS form, each lineitem's row count; a query
+    rejected past the group's queue and one cancelled by DELETE; reads of
+    system.runtime.queries, tasks and metrics that find the texts just
+    run; EXPLAIN ANALYZE of Q5 with its `-- trace:` and `-- kernels:`
+    footers (kernels 1-3 launched, every launch timed by CUDA events).
+    Returns {label: report}."""
+    import threading
+
+    from presto_tpu_torch.server import Client, CoordinatorServer
+
+    gate = threading.Event()
+    srv = CoordinatorServer(sess, resource_groups=COORD_GROUPS,
+                            cluster_pressure=gate.is_set).start()
+    report = {}
+    try:
+        client = Client(srv.uri, timeout=600)
+        texts = tpch22_texts()
+        for label, text in texts.items():
+            want = json_rows(TPCH22_ROWS[label])
+            walls = []
+            for _ in range(runs):
+                rows, ms, info = coord_run(client, srv, text)
+                diff = row_diff(rows, want)
+                if diff is not None:
+                    raise AssertionError(f"coordinator {label}: {diff}")
+                walls.append(ms)
+            if not info.trace_id or set(info.phase_ms or ()) != {"plan", "execute"}:
+                raise AssertionError(f"coordinator {label}: no trace ({info.trace_id}, "
+                                     f"{info.phase_ms})")
+            report[label] = {"result_rows": len(rows), "cold_ms": walls[0],
+                             "warm_ms": min(walls[1:]),
+                             "tpch22_warm_ms": tpch22[label]["warm_ms"],
+                             "phase_ms": info.phase_ms, "trace_id": info.trace_id}
+            print(f"phase3 coordinator {label}", json.dumps(report[label]), flush=True)
+        n = cat.exact_row_count("lineitem")
+        for label, text in NINE_KEY_SQL.items():
+            rows, ms, info = coord_run(client, srv, text)
+            if rows != [[n]]:
+                raise AssertionError(f"coordinator {label}: {rows} != [[{n}]]")
+            report[label] = {"rows": rows, "ms": ms, "phase_ms": info.phase_ms}
+            print(f"phase3 coordinator {label}", json.dumps(report[label]), flush=True)
+        report["admission"] = coordinator_admission(srv, gate, client, texts["Q1"])
+        print("phase3 coordinator admission", json.dumps(report["admission"]), flush=True)
+        report["system"] = coordinator_system_reads(client, texts)
+        print("phase3 coordinator system", json.dumps(report["system"]), flush=True)
+        rows, ms, _info = coord_run(client, srv, "explain analyze " + texts["Q5"])
+        text = "\n".join(r[0] for r in rows)
+        footer = kernel_footer(text)
+        trace = [ln for ln in text.split("\n") if ln.startswith("-- trace: trace ")]
+        for k in ("groupby_partials", "join_insert", "join_probe"):
+            launched, timed, dev_ms = footer.get(k, (0, 0, 0.0))
+            if not (launched >= 1 and timed == launched and dev_ms > 0):
+                raise AssertionError(f"coordinator EXPLAIN ANALYZE Q5: {k} {footer.get(k)} "
+                                     f"in\n{text}")
+        if not trace:
+            raise AssertionError(f"coordinator EXPLAIN ANALYZE Q5 without -- trace:\n{text}")
+        report["explain_analyze_q5"] = {"ms": ms, "kernels": footer, "trace": trace[0]}
+        for ln in text.split("\n"):
+            if ln.startswith("-- trace: ") or ln.startswith("-- kernels: "):
+                print(f"phase3 coordinator Q5 {ln}", flush=True)
+    finally:
+        srv.stop()
+    print("phase3 coordinator summary", json.dumps({
+        "texts": len(texts), "warm_ms_total": sum(report[q]["warm_ms"] for q in texts),
+        "tpch22_warm_ms_total": sum(report[q]["tpch22_warm_ms"] for q in texts)}), flush=True)
+    return report
+
+
+def coordinator_system_reads(client, texts):
+    """system.runtime.queries, tasks and metrics through the coordinator:
+    every `tpch22` text FINISHED at least twice, a query span of each
+    text's trace, presto_queries_total at least the queries seen."""
+    _c, rows = client.execute("select query, state from system.runtime.queries")
+    finished = {}
+    for q, state in rows:
+        if state == "FINISHED":
+            finished[q] = finished.get(q, 0) + 1
+    missing = [label for label, text in texts.items() if finished.get(text, 0) < 2]
+    _c, spans = client.execute("select trace_id, name, status from system.runtime.tasks "
+                               "where name = 'query'")
+    _c, total = client.execute("select sum(value) from system.runtime.metrics "
+                               "where name = 'presto_queries_total'")
+    out = {"queries": len(rows), "finished_texts": len(texts) - len(missing),
+           "query_spans": len(spans), "queries_total": total[0][0]}
+    if missing or len(spans) < len(texts) or total[0][0] < 2 * len(texts):
+        raise AssertionError(f"coordinator system tables: {out}, missing {missing}")
+    return out
+
+
+def profile_cost(n=262_144, bits=19, calls=200):
+    """What the kernel profile adds to a launch: join_insert at Q5's
+    largest build (n rows, 87 % live) called back to back, with
+    PRESTO_TPU_TRACE=0 and =1 alternating twice: host microseconds a call
+    (`calls` calls, then a synchronize) and the device ms a call as
+    phase 2 measures it (cuda_ms); then the time to read the parked pairs.
+    Returns {"host_us", "cuda_ms", "drain_ms", "pairs_read"}."""
+    import os
+
+    import torch
+
+    from presto_tpu_torch.obs.kernelprof import KERNEL_PROFILE
+    from presto_tpu_torch.ops import join_kernel as jk
+
+    if not torch.cuda.is_available():
+        return None
+    g = torch.Generator(device="cuda").manual_seed(16)
+    h = torch.randint(-2 ** 62, 2 ** 62, (n,), dtype=torch.int64, device="cuda", generator=g)
+    live = torch.rand(n, device="cuda", generator=g) < 0.87
+    before = os.environ.get("PRESTO_TPU_TRACE")
+    out = {"host_us": {"0": [], "1": []}, "cuda_ms": {"0": [], "1": []}}
+    try:
+        for flag in ("0", "1", "1", "0"):
+            os.environ["PRESTO_TPU_TRACE"] = flag
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                jk.join_insert(h, live, bits)
+            torch.cuda.synchronize()
+            out["host_us"][flag].append((time.perf_counter() - t) / calls * 1e6)
+            out["cuda_ms"][flag].append(cuda_ms(lambda: jk.join_insert(h, live, bits)))
+    finally:
+        if before is None:
+            os.environ.pop("PRESTO_TPU_TRACE", None)
+        else:
+            os.environ["PRESTO_TPU_TRACE"] = before
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out["pairs_read"] = KERNEL_PROFILE.drain()
+    out["drain_ms"] = (time.perf_counter() - t) * 1e3
+    return out
+
+
+def trace_cost(sess, runs=2):
+    """TRACE_COST_TEXTS warm on the session with PRESTO_TPU_TRACE=0 and =1
+    alternating (0, 1, then 1, 0), `runs` runs of each, every run held to
+    TPCH22_ROWS; then Q5's host syncs under torch.cuda.set_sync_debug_mode
+    with tracing on and off (after one uncounted call), which must be
+    equal; and profile_cost. Prints the `phase3 coordinator trace` line;
+    returns it."""
+    import os
+
+    texts = tpch22_texts()
+    walls = {"0": {q: [] for q in TRACE_COST_TEXTS}, "1": {q: [] for q in TRACE_COST_TEXTS}}
+    before = os.environ.get("PRESTO_TPU_TRACE")
+    syncs = {}
+    try:
+        for r in range(runs):
+            for flag in (("0", "1") if r % 2 == 0 else ("1", "0")):
+                os.environ["PRESTO_TPU_TRACE"] = flag
+                for label in TRACE_COST_TEXTS:
+                    t = time.perf_counter()
+                    rows = sess.query(texts[label]).rows()
+                    walls[flag][label].append((time.perf_counter() - t) * 1e3)
+                    diff = row_diff(rows, TPCH22_ROWS[label])
+                    if diff is not None:
+                        raise AssertionError(f"trace cost {label} trace={flag}: {diff}")
+        # the first call under the sync debug mode in a process reports one
+        # more sync, at torch's own set_sync_debug_mode line, whatever the
+        # trace switch: an uncounted call goes first, with tracing off
+        os.environ["PRESTO_TPU_TRACE"] = "0"
+        _rows, first, _sites = _host_syncs(lambda: sess.query(texts["Q5"]).rows(), where=True)
+        where = {}
+        for flag in ("1", "0"):
+            os.environ["PRESTO_TPU_TRACE"] = flag
+            _rows, syncs[flag], where[flag] = _host_syncs(
+                lambda: sess.query(texts["Q5"]).rows(), where=True)
+    finally:
+        if before is None:
+            os.environ.pop("PRESTO_TPU_TRACE", None)
+        else:
+            os.environ["PRESTO_TPU_TRACE"] = before
+    best = {f: {q: min(w) for q, w in walls[f].items()} for f in walls}
+    wrapper = profile_cost()
+    line = {"texts": list(TRACE_COST_TEXTS), "runs": runs,
+            "trace_off_ms_sum": sum(best["0"].values()),
+            "trace_on_ms_sum": sum(best["1"].values()),
+            "ratio": sum(best["1"].values()) / sum(best["0"].values()),
+            "per_text": {q: [best["0"][q], best["1"][q]] for q in TRACE_COST_TEXTS},
+            "all_runs_ms_sum": {f: sum(sum(w) for w in walls[f].values()) for f in walls},
+            "q5_host_syncs": {"trace_on": syncs["1"], "trace_off": syncs["0"],
+                              "first_call_trace_off": first},
+            "insert_wrapper": wrapper}
+    print("phase3 coordinator trace", json.dumps(line), flush=True)
+    if syncs["1"] != syncs["0"]:
+        diff = {k: (where["1"].get(k, 0), where["0"].get(k, 0))
+                for k in set(where["1"]) | set(where["0"])
+                if where["1"].get(k, 0) != where["0"].get(k, 0)}
+        raise AssertionError(f"tracing changed Q5's host syncs: {syncs}, by site {diff}")
+    return line
+
+
 # -- phase 3: the streaming executor and its memory ladder (exec/stream.py) --
 
 STREAM_BATCH = 1 << 20  # streaming22: rows per batch
@@ -2561,16 +2860,17 @@ def _ordered(text):
     return "order by" in text.lower()
 
 
-def _host_syncs(fn):
+def _host_syncs(fn, where=False):
     """(fn(), the synchronizing CUDA calls torch reports in it under
     torch.cuda.set_sync_debug_mode: the host reads of device values, the
-    device-to-host copies that stall the host)."""
+    device-to-host copies that stall the host); with `where`, also
+    {"file:line": count} of the Python lines they came from."""
     import warnings
 
     import torch
 
     if not torch.cuda.is_available():
-        return fn(), 0
+        return (fn(), 0, {}) if where else (fn(), 0)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode(1)
@@ -2578,7 +2878,14 @@ def _host_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchronizing" in str(w.message) for w in caught)
+    syncs = [w for w in caught if "synchronizing" in str(w.message)]
+    if not where:
+        return out, len(syncs)
+    sites = {}
+    for w in syncs:
+        key = f"{w.filename}:{w.lineno}"
+        sites[key] = sites.get(key, 0) + 1
+    return out, len(syncs), sites
 
 
 def _exchange_summary(ex):
@@ -2958,6 +3265,117 @@ def http_fault_checks(device="cuda"):
     return out
 
 
+# served through a CoordinatorServer over the HttpClusterSession: (part, text)
+HTTP_COORD_TEXTS = (("repartitioned", "Q5"), ("cost", "Q10"))
+
+
+def wait_split(trace):
+    """Per consuming stage of a merged cluster trace (obs/span.py): its
+    tasks' wait on empty staging and, beside it, their pullers' HTTP and
+    decode walls; its producers' (the tasks of the stages it pulls from)
+    executor, emit and encode walls, and their results handlers' walls
+    blocked for a page and sending. The coordinator's gathers count as a
+    stage ("root") over the stages under the same attempt. Returns
+    [{stage, tasks, wait_ms, pull_ms, decode_ms, producers, exec_ms,
+    emit_ms, encode_ms, serve_wait_ms, serve_send_ms}]."""
+    spans = trace.spans()
+    kids = {}
+    for sp in spans:
+        kids.setdefault(sp.parent_id, []).append(sp)
+
+    def tasks_of(stage):
+        return [t for d in kids.get(stage.span_id, ()) if d.name.startswith("dispatch ")
+                for t in kids.get(d.span_id, ()) if t.name.startswith("task ")]
+
+    def wall(task, *path):
+        node = [task]
+        for name in path:
+            node = [c for n in node for c in kids.get(n.span_id, ()) if c.name == name]
+        return sum(n.wall_s for n in node) * 1e3
+
+    def producers(stages):
+        tasks = [t for st in stages for t in tasks_of(st)]
+        return {"producers": len(tasks),
+                "exec_ms": sum(wall(t, "exec") for t in tasks),
+                "emit_ms": sum(wall(t, "emit") for t in tasks),
+                "encode_ms": sum(wall(t, "emit", "encode") for t in tasks),
+                "serve_wait_ms": sum(float(t.attrs.get("serve_wait_ms", 0)) for t in tasks),
+                "serve_send_ms": sum(float(t.attrs.get("serve_send_ms", 0)) for t in tasks)}
+
+    out = []
+    for st in (sp for sp in spans if sp.name.startswith("stage ")):
+        below = [c for c in kids.get(st.span_id, ()) if c.name.startswith("stage ")]
+        if not below:
+            continue
+        tasks = tasks_of(st)
+        out.append(dict({"stage": st.name, "tasks": len(tasks),
+                         "wait_ms": sum(wall(t, "exec", "wait") for t in tasks),
+                         "pull_ms": sum(wall(t, "exec", "wait", "pull") for t in tasks),
+                         "decode_ms": sum(wall(t, "exec", "wait", "decode") for t in tasks)},
+                        **producers(below)))
+    for attempt in (sp for sp in spans if sp.name.startswith("attempt ")):
+        gathers = [c for c in kids.get(attempt.span_id, ()) if c.name.startswith("exchange ")]
+        below = [c for c in kids.get(attempt.span_id, ()) if c.name.startswith("stage ")]
+        out.append(dict({"stage": "root", "tasks": 1,
+                         "wait_ms": sum(float(g.attrs.get("wait_ms", 0)) for g in gathers),
+                         "pull_ms": sum(float(g.attrs.get("wire_ms", 0)) for g in gathers),
+                         "decode_ms": sum(float(g.attrs.get("decode_ms", 0)) for g in gathers)},
+                        **producers(below)))
+    return out
+
+
+def http_coordinator(sessions, uris, runs=1):
+    """HTTP_COORD_TEXTS through a CoordinatorServer over each part's
+    HttpClusterSession and a Client, `runs` times (once: the sessions ran
+    each text cold and warm just before; two runs took ~5 s more),
+    held to TPCH22_ROWS; the last run's merged trace split by
+    wait_split; then one worker's
+    /v1/metrics, which must hold presto_exchange_* and presto_kernel_*
+    series. Returns {label: report} and the scrape's kernel lines."""
+    import urllib.request
+
+    from presto_tpu_torch.obs import TRACES
+    from presto_tpu_torch.server import Client, CoordinatorServer
+
+    texts = tpch22_texts()
+    out = {}
+    for part, label in HTTP_COORD_TEXTS:
+        srv = CoordinatorServer(sessions[part]).start()
+        try:
+            client = Client(srv.uri, timeout=600)
+            walls = []
+            for _ in range(runs):
+                rows, ms, info = coord_run(client, srv, texts[label])
+                diff = row_diff(rows, json_rows(TPCH22_ROWS[label]), _ordered(texts[label]))
+                if diff is not None:
+                    raise AssertionError(f"http22 coordinator {part} {label}: {diff}")
+                walls.append(ms)
+        finally:
+            srv.stop()
+        trace = TRACES.get(info.trace_id)
+        if trace is None or trace.orphans():
+            raise AssertionError(f"http22 coordinator {part} {label}: trace {info.trace_id} "
+                                 f"missing or with orphans")
+        names = [sp.name for sp in trace.spans()]
+        out[f"{part} {label}"] = {
+            "ms": walls, "phase_ms": info.phase_ms,
+            "trace_id": info.trace_id, "spans": len(names),
+            "task_spans": sum(n.startswith("task ") for n in names),
+            "stages": wait_split(trace)}
+        print(f"phase3 http22 coordinator {part} {label}", json.dumps(out[f"{part} {label}"]),
+              flush=True)
+    with urllib.request.urlopen(uris[0] + "/v1/metrics", timeout=60) as r:
+        text = r.read().decode()
+    exch = [ln for ln in text.splitlines() if ln.startswith("presto_exchange_")]
+    kern = [ln for ln in text.splitlines() if ln.startswith("presto_kernel_")]
+    if not exch or not kern:
+        raise AssertionError(f"http22 worker /v1/metrics without exchange or kernel series:\n"
+                             f"{text[:2000]}")
+    print("phase3 http22 worker metrics", json.dumps({"exchange": exch, "kernel": kern}),
+          flush=True)
+    return out, kern
+
+
 def http22_path(cat, procs, tpch22=None, device="cuda"):
     """The `http22` path: HttpClusterSession over the worker processes of
     start_http_workers (each WorkerServer(TpchCatalog(HTTP_SF)) on the
@@ -2965,9 +3383,11 @@ def http22_path(cat, procs, tpch22=None, device="cuda"):
     texts under the cost-based distribution and (b) DIST_REPARTITIONED
     with every join repartitioned, each cold then warm and held to
     TPCH22_ROWS, with warm ms against `tpch22`'s, wire bytes and exchange
-    ms a text, and Q5's ragged pages; (c) http_wire_checks; (d)
-    http_fault_checks. The workers stop at the end; their launch counts
-    are returned per worker with the report."""
+    ms a text, and Q5's ragged pages; (c) http_coordinator, the texts of
+    HTTP_COORD_TEXTS served by a CoordinatorServer over the sessions of
+    (a) and (b), their consumer waits split, and a worker's metrics; (d)
+    http_wire_checks; (e) http_fault_checks. The workers stop at the end;
+    their launch counts are returned per worker with the report."""
     from presto_tpu_torch.server import HttpClusterSession, NodeManager
 
     report = {}
@@ -2977,10 +3397,11 @@ def http22_path(cat, procs, tpch22=None, device="cuda"):
             [{"uri": u, "catalog_setup_s": s} for u, s in ready]), flush=True)
         nodes = NodeManager([u for u, _ in ready], interval=3600)
         texts = tpch22_texts()
+        sessions = {}
         for part, threshold, labels in (("cost", None, list(texts)),
                                         ("repartitioned", 0, DIST_REPARTITIONED)):
-            sess = HttpClusterSession(cat, nodes, broadcast_threshold=threshold,
-                                      result_cache=False)
+            sess = sessions[part] = HttpClusterSession(cat, nodes, broadcast_threshold=threshold,
+                                                       result_cache=False)
             runs = {}
             for label in labels:
                 text = texts[label]
@@ -3008,6 +3429,7 @@ def http22_path(cat, procs, tpch22=None, device="cuda"):
                                              f"pages: {st['hier']}")
                 print(f"phase3 http22 {part} {label}", json.dumps(runs[label]), flush=True)
             report[part] = runs
+        report["coordinator"], _kern = http_coordinator(sessions, [u for u, _ in ready])
         report["wire"] = http_wire_checks(cat, device)
         report["faults"] = http_fault_checks(device)
     finally:
@@ -3057,8 +3479,13 @@ TPCDS_CAPTURE = ("Q3", "Q5", "Q7", "Q14", "Q18", "Q21", "Q22", "Q27", "Q36", "Q3
 # then started after phase 1), so a fixed count. The same cuts
 # run each `tpcds` text once warm after its cold run (twice before
 # `dist22`), each `streaming22` text once (twice before `dist22`) and
-# `matview` in 2 batches (8 before `dist22`, 4 before `http22`).
-TRACE_TPCDS_TEXTS = 6
+# `matview` in 2 batches (8 before `dist22`, 4 before `http22`). The
+# `coordinator` path and `http22`'s coordinator checks added ~20 s (the
+# whole script 1,062 s on a host whose `files22` took 200.7 s, against
+# 227.6 s on the host of the 1,110 s run before them), so 3 texts are
+# traced (6 before the `coordinator` path); the traces are the step
+# after the card runs that the script waits for.
+TRACE_TPCDS_TEXTS = 3
 
 
 def make_tpcds_session(sf=TPCDS_SF, device="cuda"):
@@ -4832,6 +5259,20 @@ def main() -> int:
     t0 = time.perf_counter()
     trace_paths(sess, tpch22, analytic)
     print(f"phase3 tpch22 and analytic traced in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # phase 3, the coordinator's control plane: the TPC-H session served by a
+    # CoordinatorServer, the texts through a Client; then the cost of
+    # tracing on the same session; the counts at 0 just before it
+    t0 = time.perf_counter()
+    _zero_counts()
+    coordinator_path(sess, cat, tpch22)
+    path_counts["coordinator"] = _counts()
+    trace_cost(sess)
+    print(f"phase3 coordinator launches {json.dumps(path_counts['coordinator'])} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for k in ("groupby_partials", "join_insert", "join_probe"):
+        if path_counts["coordinator"][k] < 1:
+            raise AssertionError(f"the coordinator path did not launch {k}")
 
     # after the yardstick of the TPC-H paths that follow (`tpch22`'s warm
     # walls), the `http22` worker processes generate their catalogs and the

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -77,15 +78,20 @@ def _start_build(name: str):
         _nvcc_command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True,
     )
-    return proc, tmp, path
+    return proc, tmp, path, time.perf_counter()
 
 
 def _finish_build(name: str, started) -> str:
-    proc, tmp, path = started
+    """Wait for one nvcc; the build's wall from its start goes into the
+    kernel profile as one compile of the library."""
+    from .obs.kernelprof import KERNEL_PROFILE
+
+    proc, tmp, path, t0 = started
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise KernelBuildError(f"nvcc failed for {name}:\n{out}")
     os.replace(tmp, path)
+    KERNEL_PROFILE.record_compile(name, time.perf_counter() - t0)
     return out
 
 
@@ -100,7 +106,9 @@ def build_all() -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library `name`, built first if needed."""
+    """The loaded library `name`, built first if needed. The load (and
+    the build, when there is one) each count as a compile in the kernel
+    profile."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -110,6 +118,10 @@ def load(name: str) -> ctypes.CDLL:
             st = _start_build(name)
             if st is not None:
                 _finish_build(name, st)
+            from .obs.kernelprof import KERNEL_PROFILE
+
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(_library_path(name)))
+            KERNEL_PROFILE.record_compile(name, time.perf_counter() - t0)
             _LIBS[name] = lib
     return lib

@@ -159,6 +159,9 @@ class StatsCollector:
         for s, ins, outs in pending:
             s.rows_in += total(ins)
             s.rows_out += total(outs)
+        from ..obs.export import export_node_stats
+
+        export_node_stats(self.by_node)
 
     def lookup(self, node) -> Optional[NodeStats]:
         return self.by_node.get(id(node))

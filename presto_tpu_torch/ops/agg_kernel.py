@@ -30,6 +30,7 @@ from typing import Dict, List
 
 import torch
 
+from ..obs.kernelprof import KERNEL_PROFILE
 from . import decimal128 as d128
 
 GROUPS = 6  # returnflag {A, N, R} x linestatus {F, O}
@@ -188,11 +189,14 @@ def _launch(qty, price, disc, tax, rf, ls, ship, count, cutoff) -> torch.Tensor:
     out = torch.empty(OUT_WORDS, dtype=torch.int64, device=dev)
     params = Q1Params(*(c.data_ptr() for c in cols), count.data_ptr(), cutoff.data_ptr(),
                       out.data_ptr(), scratch.data_ptr(), ticket.data_ptr(), n)
-    rc = _lib().q1_sums_launch(ctypes.byref(params), int(paired_loads(cols)),
-                               launch_blocks(n, resident),
-                               torch.cuda.current_stream(dev).cuda_stream)
+    lib = _lib()
+    timing = KERNEL_PROFILE.start("q1_partials", dev)
+    rc = lib.q1_sums_launch(ctypes.byref(params), int(paired_loads(cols)),
+                            launch_blocks(n, resident),
+                            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"q1_partials launch failed: cudaError {rc}")
+    KERNEL_PROFILE.stop(timing)
     launches += 1
     return out
 

@@ -29,6 +29,7 @@ import torch
 
 from .. import types as T
 from ..expr.compiler import evaluate
+from ..obs.kernelprof import KERNEL_PROFILE
 from ..page import Block, Page
 from .aggregate import AggSpec, _masked_live, avg_from_sum_count, max_identity, min_identity
 
@@ -260,10 +261,13 @@ def _launch(gid, live, count, chans, kinds, sources, num_groups):
                          0 if count is None else count.data_ptr(), out.data_ptr(),
                          0 if scratch is None else scratch.data_ptr(), ticket.data_ptr(), n,
                          num_groups, kinds, ptrs, aligned)
-    rc = _lib().groupby_totals_launch(ctypes.byref(params), int(dtype == torch.float64), regime,
-                                      blocks, torch._C._cuda_getCurrentRawStream(idx))
+    lib = _lib()
+    timing = KERNEL_PROFILE.start("groupby_partials", gid.device)
+    rc = lib.groupby_totals_launch(ctypes.byref(params), int(dtype == torch.float64), regime,
+                                   blocks, torch._C._cuda_getCurrentRawStream(idx))
     if rc != 0:
         raise RuntimeError(f"groupby_partials launch failed: cudaError {rc}")
+    KERNEL_PROFILE.stop(timing)
     launches += 1
     return out
 

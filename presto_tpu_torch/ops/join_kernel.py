@@ -48,6 +48,7 @@ import torch
 
 from ..expr.compiler import evaluate
 from ..expr.functions import NotPortedError, Val
+from ..obs.kernelprof import KERNEL_PROFILE
 from ..page import Block, Page
 from .hashing import _srl, hash_rows_values, value_hashable
 
@@ -319,10 +320,13 @@ def join_insert(h, live, bits: int):
     overflow = torch.empty((n, 2), dtype=torch.int32, device=dev)
     p = InsertParams(h.data_ptr(), live.data_ptr(), table.data_ptr(), overflow.data_ptr(), n,
                      size, bits)
-    rc = _lib("join_insert").join_insert_launch(ctypes.byref(p), _blocks(n), _stream(dev))
+    lib = _lib("join_insert")
+    timing = KERNEL_PROFILE.start("join_insert", dev) if n else None
+    rc = lib.join_insert_launch(ctypes.byref(p), _blocks(n), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"join_insert launch failed: cudaError {rc}")
     if n:
+        KERNEL_PROFILE.stop(timing)
         insert_launches += 1
     return table[:size], overflow, table[size, 0]
 
@@ -496,9 +500,12 @@ def join_probe(slots, h, live, bits: int, prep):
     if m == 0:
         return matched, brow
     p = pack_probe_params(slots, h, live, matched, brow, bits, keys)
-    rc = _lib("join_probe").join_probe_launch(ctypes.byref(p), _blocks(m), _stream(dev))
+    lib = _lib("join_probe")
+    timing = KERNEL_PROFILE.start("join_probe", dev)
+    rc = lib.join_probe_launch(ctypes.byref(p), _blocks(m), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"join_probe launch failed: cudaError {rc}")
+    KERNEL_PROFILE.stop(timing)
     probe_launches += 1
     return matched, brow
 
@@ -511,14 +518,16 @@ def join_probe(slots, h, live, bits: int, prep):
 def build_table(page: Page, key_exprs) -> Optional[JoinTable]:
     """The linear-probe JoinTable of a build page, or None when the shape
     takes the sorted-hash layout instead: no keys (cross join), a build
-    over TABLE_MAX_BUILD rows, or varchar keys too large to value-hash.
-    Two host reads: the live count (it sizes the table) and the overflow
-    count after the insert."""
+    over TABLE_MAX_BUILD rows, varchar keys too large to value-hash, or
+    keys the probe kernel cannot carry (more than MAX_KEYS, or a key
+    whose kind or lanes _kernel_keys refuses). Two host reads: the live
+    count (it sizes the table) and the overflow count after the insert."""
     global table_builds
-    if not key_exprs or page.capacity > TABLE_MAX_BUILD:
+    if not key_exprs or page.capacity > TABLE_MAX_BUILD or len(key_exprs) > MAX_KEYS:
         return None
     keys = [evaluate(e, page) for e in key_exprs]
-    if not value_hashable(keys):
+    if not value_hashable(keys) or not all(k.data.dtype in KEY_KINDS and k.data.ndim in (1, 2)
+                                           for k in keys):
         return None
     cnt = int(page.count)
     bits = _pick_bits(cnt)

@@ -1,17 +1,20 @@
-"""Server layer (torch counterpart of presto_tpu/server/).
+"""Server layer (torch counterpart of presto_tpu/server/): coordinator,
+workers and the REST protocol.
 
-Ported so far: the HTTP cluster data plane and the static catalog store.
+Single-node embedding:  CoordinatorServer(Session(...)).start()
+                        (the Session on the card, or device="cpu").
+Cluster execution:      WorkerServer(catalog).start() per node, then
+                        NodeManager([...uris]) and
+                        HttpClusterSession(catalog, nodes); a
+                        CoordinatorServer serves it as it is.
+Client:                 Client(coordinator_uri).execute(sql).
+Wire format:            serialize_page / deserialize_page (PTP1 and PTP2
+                        frames, byte-compatible with the JAX package's).
+"""
 
-Cluster execution:  WorkerServer(catalog).start() per node (catalog on the
-                    card, or device="cpu"), then NodeManager([...uris]) and
-                    HttpClusterSession(catalog, nodes).query(sql).
-Wire format:        serialize_page / deserialize_page (PTP1 and PTP2 frames,
-                    byte-compatible with the JAX package's).
-
-The coordinator, client and the rest of the control plane are ROADMAP
-queue 1 items."""
-
+from .client import Client, QueryError
 from .cluster import HttpClusterSession, HttpScheduler, NodeManager, TaskFailure
+from .coordinator import CoordinatorServer
 from .exchange import ExchangeClient, ExchangeError, ExchangeStats
 from .serde import (
     DictionaryCache,
@@ -24,6 +27,9 @@ from .serde import (
 from .worker import WorkerServer
 
 __all__ = [
+    "Client",
+    "QueryError",
+    "CoordinatorServer",
     "WorkerServer",
     "NodeManager",
     "HttpScheduler",

@@ -25,8 +25,12 @@ fresh worker snapshot. Fatal causes (a low-memory kill, exhausted worker
 memory, protocol violations) are never retried, and the query's sibling
 tasks are cancelled.
 
-The JAX package's trace spans and metric exports wait for the port's
-observability plane."""
+Tracing (obs/): the session opens the query's root and its plan and
+execute spans; the scheduler hangs per-attempt, per-stage, per-dispatch
+and per-gather spans under execute, the task spec carries the trace id
+and the dispatch span's id, and the workers' task spans (returned in
+their statuses) merge into the same tree. Scheduler, exchange, wire and
+hierarchical-exchange stats export into the metrics plane."""
 
 from __future__ import annotations
 
@@ -337,25 +341,43 @@ class HttpScheduler:
     # -- public --
 
     def record_caches(self, snapshot: dict) -> None:
+        """Publish the serving caches' counters, and the cumulative
+        scheduler counters as gauges, once per query."""
+        from ..obs.export import export_scheduler_stats
+
         with self._lock:
             self.stats.caches = snapshot
+            export_scheduler_stats(self.stats)
 
     def stats_snapshot(self) -> dict:
         with self._lock:
             return self.stats.snapshot()
 
-    def run(self, root: N.PlanNode, query_id: Optional[str] = None, adapt: bool = True):
+    def run(self, root: N.PlanNode, query_id: Optional[str] = None, adapt: bool = True,
+            trace_ctx: Optional[tuple] = None):
         """Execute, re-running the whole plan on a fresh worker snapshot
-        after a retryable failure that escaped the per-task retries."""
+        after a retryable failure that escaped the per-task retries.
+        `trace_ctx` is (Trace, parent span id): each attempt gets its own
+        span under the parent, so a retried query shows sibling attempts."""
         if query_id is None:
             query_id = f"q_{uuid.uuid4().hex[:12]}"
+        trace = trace_ctx[0] if trace_ctx else None
         for attempt in range(self.max_query_retries + 1):
             # a distinct id per attempt: a prior attempt's dying tasks never
             # share memory accounting with the re-run
             qid = query_id if attempt == 0 else f"{query_id}.r{attempt}"
+            aspan = None
+            if trace is not None:
+                aspan = trace.begin(f"attempt {attempt}", parent_id=trace_ctx[1], query_id=qid)
             try:
-                return self._run_attempt(root, qid, adapt=adapt)
+                result = self._run_attempt(root, qid, adapt=adapt,
+                                           tctx=(trace, aspan.span_id) if trace else None)
+                if trace is not None:
+                    trace.finish(aspan)
+                return result
             except RuntimeError as exc:
+                if trace is not None:
+                    trace.finish(aspan, "error", error=str(exc)[:200])
                 retryable = getattr(exc, "retryable", None)
                 if retryable is None:
                     retryable = _retryable_message(str(exc))
@@ -373,7 +395,8 @@ class HttpScheduler:
                 if not self.nodes.active_workers():
                     raise
 
-    def _run_attempt(self, root: N.PlanNode, query_id: str, adapt: bool = True):
+    def _run_attempt(self, root: N.PlanNode, query_id: str, adapt: bool = True,
+                     tctx: Optional[tuple] = None):
         # one membership snapshot per attempt: producer partition counts
         # must match consumer task counts even if a node fails mid-query
         workers = self.nodes.active_workers()
@@ -394,22 +417,36 @@ class HttpScheduler:
             sources = self._resolve_sources(
                 specs, False, workers, all_tasks, query_id,
                 dyn_links=self._dyn_links(fragment, specs), dyn_values={},
-                wire_caps=wire_caps, adapt=adapt)
-            return FragmentExecutor(self.catalog, {}, sources, device=self.device).run(fragment)
+                wire_caps=wire_caps, adapt=adapt, tctx=tctx)
+            rspan = tctx[0].begin("root-fragment", parent_id=tctx[1]) if tctx else None
+            try:
+                result = FragmentExecutor(self.catalog, {}, sources,
+                                          device=self.device).run(fragment)
+            except Exception:
+                if rspan is not None:
+                    tctx[0].finish(rspan, "error")
+                raise
+            if rspan is not None:
+                tctx[0].finish(rspan)
+            return result
         finally:
-            self._collect_task_stats(all_tasks)
+            self._collect_task_stats(all_tasks, tctx)
             # free the workers' output buffers; on failure this also
             # cancels the sibling tasks
             self._cancel_tasks(all_tasks)
 
-    def _collect_task_stats(self, tasks: List[Tuple[str, str, bool]]) -> None:
-        """Fold every task's wire, hierarchical-exchange and memory-ladder
-        stats into the query's rollup (the tasks feeding other workers are
-        never polled otherwise). Tasks of failed POSTs answer 404 and are
-        left out."""
+    def _collect_task_stats(self, tasks: List[Tuple[str, str, bool]],
+                            tctx: Optional[tuple] = None) -> None:
+        """Fold every task's spans into the query's trace, and its wire,
+        hierarchical-exchange and memory-ladder stats into the query's
+        rollup (the tasks feeding other workers are never polled
+        otherwise). Tasks of failed POSTs answer 404 and are left out."""
+        from ..obs.export import export_hier_stats
+
         hier = HierExchangeStats()
         wire = WireStats()
-        sums = {"pull_ms": 0.0, "wait_ms": 0.0, "exec_ms": 0.0, "emit_ms": 0.0}
+        sums = {"pull_ms": 0.0, "wait_ms": 0.0, "exec_ms": 0.0, "emit_ms": 0.0,
+                "serve_wait_ms": 0.0, "serve_send_ms": 0.0}
         events: set = set()
         spilled = revocations = 0
         for uri, task_id, _partitioned in tasks:
@@ -417,13 +454,15 @@ class HttpScheduler:
                 st = self._task_status(uri, task_id)
             except TaskFailure:
                 continue
+            if tctx is not None:
+                tctx[0].add_remote(st.get("spans") or ())
             ex = st.get("exchangeStats") or {}
             wire.merge_snapshot(ex)
             hier.merge_snapshot(ex.get("hier"))
             pull = ex.get("pull") or {}
             sums["pull_ms"] += float(pull.get("pull_ms") or 0.0)
             sums["wait_ms"] += float(pull.get("consumer_wait_ms") or 0.0)
-            for k in ("exec_ms", "emit_ms"):
+            for k in ("exec_ms", "emit_ms", "serve_wait_ms", "serve_send_ms"):
                 sums[k] += float((st.get("timing") or {}).get(k) or 0.0)
             sp = st.get("spillStats") or {}
             spilled += int(sp.get("disk_bytes") or 0)
@@ -440,6 +479,8 @@ class HttpScheduler:
             if spilled or revocations or events:
                 self.stats.memory = {"spilled_bytes": spilled, "revocations": revocations,
                                      "events": sorted(events)}
+        if snap.get("exchanges"):
+            export_hier_stats(hier, role="gather")
 
     def _cancel_tasks(self, tasks: List[Tuple[str, str, bool]]) -> None:
         for uri, task_id, _partitioned in tasks:
@@ -571,7 +612,7 @@ class HttpScheduler:
     def _resolve_sources(self, specs, sharded_consumer: bool, workers: List[str], all_tasks,
                          query_id: Optional[str] = None, dyn_links=None,
                          dyn_values: Optional[dict] = None, wire_caps: Optional[dict] = None,
-                         adapt: bool = False):
+                         adapt: bool = False, tctx: Optional[tuple] = None):
         """Run the producer stage of each exchange; returns
         {sid: (kind, handles)} for a sharded consumer, else {sid: [pages]}
         (the coordinator consumes). A stage producing a filter that a
@@ -596,7 +637,7 @@ class HttpScheduler:
             if ex.kind == "repartition" and sharded_consumer:
                 handles = self._run_sharded_stage(
                     ex.child, ("hash", ex.keys), workers, all_tasks, query_id,
-                    dyn_produce=entries, dyn_values=dyn_values, wire_caps=wire_caps)
+                    dyn_produce=entries, dyn_values=dyn_values, wire_caps=wire_caps, tctx=tctx)
                 resolved[sid] = ("repartition", handles)
             else:
                 # gather, replicate, and a repartition the coordinator
@@ -606,7 +647,7 @@ class HttpScheduler:
                 handles = self._run_sharded_stage(
                     ex.child, ("single",), workers, all_tasks, query_id,
                     unbounded_output=sharded_consumer and ex.kind == "replicate",
-                    dyn_produce=entries, dyn_values=dyn_values, wire_caps=wire_caps)
+                    dyn_produce=entries, dyn_values=dyn_values, wire_caps=wire_caps, tctx=tctx)
                 resolved[sid] = ("gather", handles)
             if entries and any(other != sid and (consume.get(other, set())
                                                  & {f for f, _ in entries})
@@ -622,15 +663,25 @@ class HttpScheduler:
             client = ExchangeClient([(uri, task, 0) for uri, task in handles], ack=True,
                                     deadline=self.task_deadline, stats=ex_stats,
                                     device=self.device)
+            gspan = tctx[0].begin(f"exchange {sid}", parent_id=tctx[1]) if tctx else None
             try:
                 pages = list(client.pages())
             except ExchangeError as e:
                 # attribute the failure to its worker, so the query retry
                 # feeds the blacklist
                 self._record_exchange(sid, ex_stats, ())
+                if gspan is not None:
+                    tctx[0].finish(gspan, "error", error=str(e)[:200])
                 raise TaskFailure(str(e), uri=e.uri, task_id=e.task_id,
                                   retryable=_retryable_message(str(e))) from None
             self._record_exchange(sid, ex_stats, handles)
+            if gspan is not None:
+                snap = ex_stats.snapshot()
+                tctx[0].finish(gspan, pages=snap["pages"], bytes=snap["wire_bytes"],
+                               wire_ms=snap["pull_ms"], hidden_ms=snap["hidden_ms"],
+                               overlap=snap["overlap_frac"], wait_ms=snap["consumer_wait_ms"],
+                               decode_ms=snap["decode_ms"],
+                               producers=[task for _uri, task in handles])
             if adapt:
                 self._maybe_adaptive_replan(specs[sid], pages)
             out[sid] = pages
@@ -674,7 +725,9 @@ class HttpScheduler:
     def _record_exchange(self, sid: str, ex_stats: ExchangeStats, handles) -> None:
         """Fold one gather's pull stats and its producers' encode stats
         (their statuses, still queryable until the query's cleanup) into
-        the exchange's entry."""
+        the exchange's entry and the metrics plane."""
+        from ..obs.export import export_exchange_stats, export_wire_stats
+
         entry = ex_stats.snapshot()
         encode = WireStats()
         hier = HierExchangeStats()
@@ -687,6 +740,8 @@ class HttpScheduler:
             encode.merge_snapshot(ex)
             hier.merge_snapshot(ex.get("hier"))
         entry["producer"] = encode.snapshot()
+        export_exchange_stats(ex_stats)
+        export_wire_stats("producer_encode", encode)
         hier_snap = hier.snapshot()
         if hier_snap.get("exchanges"):
             entry["hier"] = hier_snap
@@ -696,7 +751,8 @@ class HttpScheduler:
     def _run_sharded_stage(self, node: N.PlanNode, output, all_workers: List[str], all_tasks,
                            query_id: Optional[str] = None, unbounded_output: bool = False,
                            dyn_produce=None, dyn_values: Optional[dict] = None,
-                           wire_caps: Optional[dict] = None) -> List[Tuple[str, str]]:
+                           wire_caps: Optional[dict] = None,
+                           tctx: Optional[tuple] = None) -> List[Tuple[str, str]]:
         """One task per worker for a sharded stage (splits or repartitioned
         inputs); a scan-less single-distribution stage runs as ONE task so
         rows are never duplicated. Returns [(worker_uri, task_id)]."""
@@ -705,10 +761,17 @@ class HttpScheduler:
         sharded = self._has_scan(fragment) or any(ex.kind == "repartition"
                                                   for ex in specs.values())
         workers = all_workers if sharded else all_workers[:1]
+        sspan = None
+        if tctx is not None:
+            # the stage span covers the launch; its dispatch spans and the
+            # workers' task spans under them carry the execution wall
+            sspan = tctx[0].begin(f"stage {output[0]}:{type(fragment).__name__}",
+                                  parent_id=tctx[1], tasks=len(workers))
+            tctx = (tctx[0], sspan.span_id)
         child_resolved = self._resolve_sources(
             specs, True, all_workers, all_tasks, query_id,
             dyn_links=self._dyn_links(fragment, specs), dyn_values=dyn_values,
-            wire_caps=wire_caps)
+            wire_caps=wire_caps, tctx=tctx)
         # row-range splits per scanned table
         tables = self._scan_tables(fragment)
         ranges = {}
@@ -750,22 +813,26 @@ class HttpScheduler:
                 "dyn_filters": dict(dyn_values) if dyn_values else None,
                 "wire": wire_caps,
             }
-            launched.append(self._post_with_retry(uri, spec, all_workers, all_tasks))
+            launched.append(self._post_with_retry(uri, spec, all_workers, all_tasks, tctx=tctx))
         # surface start failures eagerly, retrying each failed task on an
         # alternate worker (catalogs are deterministic across nodes, so the
         # same spec is valid anywhere in the snapshot)
-        return [self._ensure_started(uri, task_id, spec, all_workers, all_tasks)
-                for uri, task_id, spec, _attempts in launched]
+        handles = [self._ensure_started(uri, task_id, spec, all_workers, all_tasks, tctx=tctx)
+                   for uri, task_id, spec, _attempts in launched]
+        if sspan is not None:
+            tctx[0].finish(sspan)
+        return handles
 
     # -- task start and retry --
 
-    def _post_with_retry(self, uri: str, spec: dict, snapshot: List[str], all_tasks):
+    def _post_with_retry(self, uri: str, spec: dict, snapshot: List[str], all_tasks,
+                         tctx: Optional[tuple] = None):
         """POST a task, retrying a refused connection on alternates.
         Returns (uri, task_id, spec, attempts_used)."""
         attempt = 1
         while True:
             task_id = self._new_task_id()
-            failed = self._try_post(uri, task_id, spec, all_tasks)
+            failed = self._try_post(uri, task_id, spec, all_tasks, tctx=tctx)
             if failed is None:
                 return uri, task_id, spec, attempt
             error = failed["error"]
@@ -781,25 +848,40 @@ class HttpScheduler:
             with self._lock:
                 self.stats.task_retries += 1
 
-    def _try_post(self, uri: str, task_id: str, spec: dict, all_tasks) -> Optional[dict]:
+    def _try_post(self, uri: str, task_id: str, spec: dict, all_tasks,
+                  tctx: Optional[tuple] = None) -> Optional[dict]:
         """POST a task; None on success, else a FAILED status dict (never
         raises for transport errors). The task is registered for cleanup
         BEFORE the POST: if the response is lost after the worker took the
-        task, the query's cleanup still deletes it."""
+        task, the query's cleanup still deletes it. Every post passes here,
+        so each (re)post gets its own dispatch span under the stage, and
+        the spec carries (trace id, that span's id) for the worker's task
+        span: a retry is a sibling subtree, never an overwrite."""
         all_tasks.append((uri, task_id, bool(spec.get("partition_keys"))))
+        dspan = None
+        if tctx is not None:
+            dspan = tctx[0].begin(f"dispatch {task_id}", parent_id=tctx[1], worker=uri)
+            spec["trace"] = {"trace_id": tctx[0].trace_id, "parent": dspan.span_id}
         try:
             self._post_task(uri, task_id, spec)
+            if dspan is not None:
+                tctx[0].finish(dspan)
             return None
         except urllib.error.HTTPError as e:
             # the worker answered: honor its structured verdict
             detail, retryable = _http_error_details(e)
+            if dspan is not None:
+                tctx[0].finish(dspan, "error", error=detail[:200])
             return {"state": "FAILED", "error": detail, "errorInfo": {"retryable": retryable}}
         except OSError as e:
+            if dspan is not None:
+                tctx[0].finish(dspan, "error", error=str(e)[:200])
             return {"state": "FAILED", "error": f"POST to {uri} refused: {e}",
                     "errorInfo": {"retryable": True}}
 
     def _ensure_started(self, uri: str, task_id: str, spec: dict, snapshot: List[str],
-                        all_tasks, attempt: int = 1) -> Tuple[str, str]:
+                        all_tasks, attempt: int = 1,
+                        tctx: Optional[tuple] = None) -> Tuple[str, str]:
         """Eager failure surfacing with bounded retry: a task FAILED at the
         status check is re-posted (same spec) to an alternate worker after
         backoff and jitter; an unrecoverable failure cancels the query's
@@ -813,6 +895,10 @@ class HttpScheduler:
                 except TaskFailure as tf:
                     status = {"state": "FAILED", "error": str(tf),
                               "errorInfo": {"retryable": tf.retryable}}
+            if tctx is not None:
+                # a FAILED attempt's task span (status "error") lands in
+                # the tree here, before its replacement is posted
+                tctx[0].add_remote(status.get("spans") or ())
             if status.get("state") != "FAILED":
                 # started: reset the failure streak feeding the blacklist
                 self.nodes.record_task_success(uri)
@@ -829,7 +915,7 @@ class HttpScheduler:
             time.sleep(self._backoff(attempt - 1))
             uri = self._pick_alternate(uri, snapshot)
             task_id = self._new_task_id()
-            failed = self._try_post(uri, task_id, spec, all_tasks)
+            failed = self._try_post(uri, task_id, spec, all_tasks, tctx=tctx)
             posted = failed is None
             if not posted:
                 status = failed  # classify directly, no status poll
@@ -912,11 +998,16 @@ class ClusterMemoryManager:
     worker."""
 
     def __init__(self, nodes: NodeManager, interval: float = 0.25, on_kill=None,
-                 grace_polls: int = 4):
+                 grace_polls: int = 4, revoke_watermark: Optional[float] = None):
         self.nodes = nodes
         self.interval = interval
         self.on_kill = on_kill
         self.grace_polls = grace_polls  # sustained blockage before a kill
+        # fraction of a worker's limit past which admission holds new
+        # queries back (above_watermark)
+        self.revoke_watermark = (knobs.revoke_watermark() if revoke_watermark is None
+                                 else revoke_watermark)
+        self._pressure = False
         self._blocked_streak = 0
         self.killed: List[str] = []
         # blindness is counted and surfaced, never skipped silently
@@ -947,6 +1038,12 @@ class ClusterMemoryManager:
                 self.loop_errors += 1
                 self.last_loop_error = repr(exc)[:300]
 
+    def above_watermark(self) -> bool:
+        """Was any worker above the revocation watermark, or blocked, at
+        the last poll? Resource-group admission starts no new query while
+        it is (server/resource_groups.py cluster_pressure)."""
+        return self._pressure
+
     def poll_once(self) -> Optional[str]:
         """One manager cycle; returns the killed query id, if any."""
         states = []
@@ -959,6 +1056,7 @@ class ClusterMemoryManager:
                 self.poll_failures[uri] = self.poll_failures.get(uri, 0) + 1
                 snapshot[uri] = {"unreachable": True, "poll_failures": self.poll_failures[uri]}
         progress = False
+        pressure = False
         for uri, st in states:
             reserved = int(st.get("reserved") or 0)
             limit = st.get("limit") or 0
@@ -967,6 +1065,8 @@ class ClusterMemoryManager:
             if completed > self._last_rev_by_worker.get(uri, completed):
                 progress = True
             self._last_rev_by_worker[uri] = completed
+            if st.get("blocked") or (limit and reserved >= self.revoke_watermark * limit):
+                pressure = True
             snapshot[uri] = {
                 "reserved": reserved,
                 "limit": limit,
@@ -978,6 +1078,7 @@ class ClusterMemoryManager:
                 "poll_failures": self.poll_failures.get(uri, 0),
             }
         self.last_snapshot = snapshot
+        self._pressure = pressure
         if not any(st.get("blocked") for _, st in states):
             self._blocked_streak = 0
             return None
@@ -1047,16 +1148,38 @@ class HttpClusterSession:
 
     def _run_fragmented(self, sql: str, use_result_cache: bool = True):
         """The one plan -> fragment -> schedule pipeline of query() and
-        explain_analyze(); returns (fragmented node, result page). Both
-        serving caches (exec/qcache.py) sit in front of the scheduler: the
-        fragmented plan is cached per (sql, worker count, broadcast
-        setting, feedback generation) and validated against the tables'
-        snapshot versions, and a snapshot-identical repeat serves its page
-        without touching the fleet."""
+        explain_analyze(); returns (fragmented node, result page, trace or
+        None, phase ms). Both serving caches (exec/qcache.py) sit in front
+        of the scheduler: the fragmented plan is cached per (sql, worker
+        count, broadcast setting, feedback generation) and validated
+        against the tables' snapshot versions, and a snapshot-identical
+        repeat serves its page without touching the fleet. With tracing
+        on, the query's root and its plan and execute spans open here and
+        the scheduler hangs the fleet's spans under execute."""
+        from ..obs import span as obs_span
+        from ..obs.export import export_query
+
+        trace = obs_span.TRACES.new_trace() if obs_span.enabled() else None
+        root = trace.begin("query", sql=sql[:200]) if trace is not None else None
+        status = "ok"
+        phase_ms: dict = {}
+        try:
+            node, page = self._plan_and_run(sql, use_result_cache, trace, root, phase_ms)
+            return node, page, trace, phase_ms
+        except Exception:
+            status = "error"
+            raise
+        finally:
+            if trace is not None:
+                trace.finish(root, status)
+                export_query(status, root.wall_s, phase_ms)
+
+    def _plan_and_run(self, sql: str, use_result_cache: bool, trace, root, phase_ms: dict):
         from ..exec import qcache
         from ..plan import history as H
         from ..plan.fragment import fragment_plan
 
+        pspan = trace.begin("plan", parent=root) if trace is not None else None
         n_workers = max(len(self.scheduler.nodes.active_workers()), 2)
 
         def plan_fresh():
@@ -1071,6 +1194,9 @@ class HttpClusterSession:
             return planned
 
         node = plan_fresh()
+        if pspan is not None:
+            trace.finish(pspan)
+            phase_ms["plan"] = round(pspan.wall_s * 1e3, 3)
         rkey = ("cr", sql, self.broadcast_threshold, n_workers, id(self.catalog))
         pre = None
         if use_result_cache:
@@ -1079,14 +1205,26 @@ class HttpClusterSession:
                 self.scheduler.record_caches(qcache.snapshot_all())
                 return node, hit.page
             pre = qcache.RESULT_CACHE.preversions(node, self.catalog)
+        espan = trace.begin("execute", parent=root) if trace is not None else None
+        tctx = (trace, espan.span_id) if trace is not None else None
         try:
-            page = self.scheduler.run(node, query_id=self._new_query_id())
-        except H.AdaptiveReplan:
-            # the scheduler recorded the contradicting observation: a fresh
-            # plan (new generation, new key) re-plans the fragments
-            # downstream on it. One replan per query.
-            node = plan_fresh()
-            page = self.scheduler.run(node, query_id=self._new_query_id(), adapt=False)
+            try:
+                page = self.scheduler.run(node, query_id=self._new_query_id(), trace_ctx=tctx)
+            except H.AdaptiveReplan:
+                # the scheduler recorded the contradicting observation: a
+                # fresh plan (new generation, new key) re-plans the fragments
+                # downstream on it. One replan per query.
+                node = plan_fresh()
+                page = self.scheduler.run(node, query_id=self._new_query_id(), adapt=False,
+                                          trace_ctx=tctx)
+        except Exception:
+            if espan is not None:
+                trace.finish(espan, "error")
+            raise
+        if espan is not None:
+            # no row count on the span: on the card it is a host read
+            trace.finish(espan)
+            phase_ms["execute"] = round(espan.wall_s * 1e3, 3)
         if pre is not None and qcache.plan_is_deterministic(node):
             qcache.RESULT_CACHE.store(rkey, page, getattr(node, "titles", ()), self.catalog, pre)
         self.scheduler.record_caches(qcache.snapshot_all())
@@ -1100,8 +1238,13 @@ class HttpClusterSession:
     def query(self, sql: str):
         from ..session import QueryResult
 
-        node, page = self._run_fragmented(sql, use_result_cache=self.result_cache)
-        return QueryResult(page, node.titles)
+        node, page, trace, phase_ms = self._run_fragmented(sql,
+                                                           use_result_cache=self.result_cache)
+        res = QueryResult(page, node.titles)
+        if trace is not None:
+            res.trace_id = trace.trace_id
+            res.phase_ms = phase_ms
+        return res
 
     def explain_analyze(self, sql: str) -> str:
         """Run the query over the cluster (never from the result cache) and
@@ -1110,7 +1253,7 @@ class HttpClusterSession:
         and the copies between the card and the host."""
         from ..exec import qcache
 
-        node, _page = self._run_fragmented(sql, use_result_cache=False)
+        node, _page, trace, _phase_ms = self._run_fragmented(sql, use_result_cache=False)
         lines = [N.plan_tree_str(node)]
         st = self.scheduler.stats_snapshot()
         if st["wire_caps"]:
@@ -1144,6 +1287,11 @@ class HttpClusterSession:
                          f"revocations {m.get('revocations', 0)}")
         if st["caches"]:
             lines.append("-- caches: " + qcache.format_summary(st["caches"]))
+        if trace is not None:
+            # the renderer Session.explain_analyze_plan uses
+            from ..obs.span import render_critical_path
+
+            lines.append("-- trace: " + render_critical_path(trace, knobs.trace_topk()))
         return "\n".join(lines)
 
     def close(self):

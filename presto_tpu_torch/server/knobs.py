@@ -1,6 +1,6 @@
 """The single parse site of the port's PRESTO_TPU_* server knobs (torch
 counterpart of presto_tpu/server/knobs.py), with the JAX package's
-defaults. The trace knobs wait for the port's observability plane.
+defaults and variables.
 
 Knobs are read per call, not cached at import: tests and harnesses set
 and restore the environment around single runs."""
@@ -34,6 +34,27 @@ def task_deadline_s() -> float:
     fails retryably. The coordinator's pull, the exchange client and the
     worker share it."""
     return float(os.environ.get("PRESTO_TPU_TASK_DEADLINE_S", "600"))
+
+
+def trace_enabled() -> bool:
+    """Switch of the observability plane's per-query span trees and the
+    kernel profile (obs/). On by default, as in the JAX package, whose
+    bench gate holds the overhead to 5 % of a warm query;
+    PRESTO_TPU_TRACE=0 sheds even that."""
+    return _on("PRESTO_TPU_TRACE", "1")
+
+
+def trace_keep() -> int:
+    """Completed traces the in-process TraceStore keeps for
+    `system.runtime.tasks` and EXPLAIN ANALYZE's `-- trace:` footer; the
+    oldest go first."""
+    return _int("PRESTO_TPU_TRACE_KEEP", 64)
+
+
+def trace_topk() -> int:
+    """Spans (ranked by exclusive wall) the `-- trace:` critical path
+    lists."""
+    return _int("PRESTO_TPU_TRACE_TOPK", 5)
 
 
 def hier_exchange_enabled() -> bool:

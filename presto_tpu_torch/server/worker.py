@@ -13,8 +13,16 @@ RemoteSource placeholders, resolved by pulling the upstream buffers; any
 tensor in it lands on the worker's device, which is its catalog's. Every
 fragment runs through the streaming executor (exec/stream.py), so the
 partial aggregates and the joins of a worker reach the card's kernels.
-The JAX package's `/v1/metrics` endpoint and task traces wait for the
-port's observability plane.
+
+Observability (obs/): `GET /v1/metrics` serves the process's metrics in
+Prometheus text. A task whose spec carries a trace context records a task
+span under the coordinator's dispatch span, with its wait split into
+synthetic child spans (the executor's wall and, inside it, the wait on
+empty staging with the pullers' HTTP and decode walls; the emission's
+wall and, inside it, the encode); the spans travel home in the task
+status and merge into the coordinator's trace. Serving the task's
+results is timed too (blocked for a page, and sending), and every status
+carries those times on the task span.
 """
 
 from __future__ import annotations
@@ -449,6 +457,31 @@ class TaskState:
         # included) and emitting (partitioning, serializing, buffering)
         self.exec_s = 0.0
         self.emit_s = 0.0
+        # host wall of the results handler threads: blocked until a page
+        # of this task was ready, and encoding and sending responses
+        self.serve_lock = threading.Lock()
+        self.serve_wait_s = 0.0
+        self.serve_send_s = 0.0
+        # this task's spans (obs/span.py dicts), filled at task end
+        self.spans: List[dict] = []
+
+    def served(self, wait_s: float, send_s: float) -> None:
+        with self.serve_lock:
+            self.serve_wait_s += wait_s
+            self.serve_send_s += send_s
+
+    def span_dicts(self) -> List[dict]:
+        """The task's spans with the serving walls so far on its task
+        span (the last status of a task, polled after its consumers
+        finished, carries the final ones)."""
+        if not self.spans:
+            return []
+        out = [dict(d) for d in self.spans]
+        with self.serve_lock:
+            out[0]["attrs"] = dict(out[0]["attrs"],
+                                   serve_wait_ms=round(self.serve_wait_s * 1e3, 3),
+                                   serve_send_ms=round(self.serve_send_s * 1e3, 3))
+        return out
 
 
 # message fragments of failures that would recur identically on any
@@ -658,6 +691,19 @@ class WorkerServer:
         bound = None if spec.get("buffer_unbounded") else self.buffer_bound
         buffers = OutputBuffers(self.pool, state.query_id, state.abort, bound=bound)
         state.buffers = buffers
+        # the task span opens before fault injection: a failed attempt
+        # still ships an error span in its FAILED status, so the merged
+        # tree shows the attempt. The trace is standalone (never in the
+        # process's TRACES): its only way home is the status payload, in
+        # process as across processes
+        from ..obs.span import Trace, enabled as trace_enabled
+
+        tctx = spec.get("trace") or {}
+        task_trace = task_span = None
+        if tctx.get("trace_id") and trace_enabled():
+            task_trace = Trace(str(tctx["trace_id"]))
+            task_span = task_trace.begin(f"task {task_id}", parent_id=tctx.get("parent"),
+                                         worker=self.node_id)
         try:
             if self.fault_rate > 0 and random.random() < self.fault_rate:
                 # fault injection, so cluster tests can drive the failure
@@ -739,7 +785,7 @@ class WorkerServer:
             state.error_info = _classify_failure(exc)
             state.state = "FAILED"
         finally:
-            self._teardown(state, stream_iter, buffers)
+            self._teardown(state, stream_iter, buffers, task_trace, task_span)
 
     def _emit(self, page, bound, keys, nparts, use_hier, wire_caps, caches, state, buffers):
         """One output batch into the bounded buffers, partitioned or not;
@@ -761,7 +807,8 @@ class WorkerServer:
                 for d in datas:
                     buffers.put(p, d)
 
-    def _teardown(self, state: TaskState, stream_iter, buffers: OutputBuffers) -> None:
+    def _teardown(self, state: TaskState, stream_iter, buffers: OutputBuffers,
+                  task_trace=None, task_span=None) -> None:
         # deterministic teardown: closing the stream runs every suspended
         # generator's finally, returning reservations before unregister
         release_error = None
@@ -785,7 +832,60 @@ class WorkerServer:
         if state.spill_space is not None:
             state.spill_space.release()  # spill files go on finish, failure and kill
         buffers.finish()
-        state.done.set()
+        try:
+            self._finish_observability(state, task_trace, task_span)
+        finally:
+            state.done.set()  # a fault here still ends the task's polls
+
+    @staticmethod
+    def _finish_observability(state: TaskState, task_trace, task_span) -> None:
+        """Close the task span (pages and bytes from the wire stats, error
+        status for FAILED) with its wait split into synthetic child spans,
+        into state.spans; fold the task's serde and pull accounting and its
+        outcome into the metrics plane."""
+        from ..obs.export import (METRICS, export_exchange_stats, export_hier_stats,
+                                  export_wire_stats)
+
+        wire = state.wire_stats.snapshot()
+        pull = state.pull_stats.snapshot() if state.pull_stats is not None else None
+        if task_trace is not None:
+            attrs = {"pages": wire["pages"], "bytes": wire["wire_bytes"]}
+            if state.error_info:
+                attrs["error"] = str(state.error_info.get("message", ""))[:200]
+            if state.hier_stats is not None:
+                hs = state.hier_stats.snapshot()
+                if hs["exchanges"]:
+                    attrs["hier_collective_ms"] = hs["collective_ms"]
+                    attrs["hier_wire_pages"] = hs["wire_pages"]
+            if pull is not None and pull["pull_ms"]:
+                attrs["wire_ms"] = pull["pull_ms"]
+                attrs["wire_hidden_ms"] = pull["hidden_ms"]
+            # the task's wall split: inside the executor, the wait on empty
+            # staging and the pullers' HTTP and decode walls (on their own
+            # threads, so they may exceed the wait); emitting, the encode
+            ex_span = task_trace.add_synthetic("exec", task_span, state.exec_s)
+            if pull is not None:
+                wait = task_trace.add_synthetic("wait", ex_span, pull["consumer_wait_ms"] / 1e3,
+                                                pages=pull["pages"], bytes=pull["wire_bytes"],
+                                                responses=pull["responses"])
+                task_trace.add_synthetic("pull", wait, pull["pull_ms"] / 1e3)
+                task_trace.add_synthetic("decode", wait, pull["decode_ms"] / 1e3)
+            emit = task_trace.add_synthetic("emit", task_span, state.emit_s)
+            task_trace.add_synthetic("encode", emit, wire["encode_ms"] / 1e3,
+                                     pages=wire["pages"], raw_bytes=wire["raw_bytes"])
+            task_trace.finish(task_span, status="error" if state.state == "FAILED" else "ok",
+                              **attrs)
+            # the task span first: span_dicts() adds the serving walls to it
+            spans = task_trace.to_dicts()
+            spans.sort(key=lambda d: d["span_id"] != task_span.span_id)
+            state.spans = spans
+        METRICS.counter("presto_worker_tasks_total", 1, {"state": state.state},
+                        help="Worker tasks run")
+        export_wire_stats("task_encode", state.wire_stats)
+        if state.pull_stats is not None:
+            export_exchange_stats(state.pull_stats)
+        if state.hier_stats is not None:
+            export_hier_stats(state.hier_stats)
 
     def start(self) -> "WorkerServer":
         self._thread.start()
@@ -866,6 +966,18 @@ def _handler_for(outer: WorkerServer):
                 self._send(200, {"state": "ACTIVE", "wire": outer.wire_caps or local_capabilities(),
                                  "device": str(outer.device), "caches": qcache.snapshot_all()})
                 return
+            if parts == ["v1", "metrics"]:
+                # Prometheus text of this process's registry: an in-process
+                # fleet shares one plane, a worker process exposes its own
+                from ..obs.metrics import METRICS
+
+                body = METRICS.render().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                return
             if parts == ["v1", "memory"]:
                 # reference MemoryResource: both ledgers, the revocation
                 # counters and the disk spill tier
@@ -889,7 +1001,10 @@ def _handler_for(outer: WorkerServer):
                                  "dynFilters": t.dyn_filters or None, "exchangeStats": ex_stats,
                                  "memoryStats": t.memory_stats, "spillStats": t.spill_stats,
                                  "timing": {"exec_ms": round(t.exec_s * 1e3, 2),
-                                            "emit_ms": round(t.emit_s * 1e3, 2)}})
+                                            "emit_ms": round(t.emit_s * 1e3, 2),
+                                            "serve_wait_ms": round(t.serve_wait_s * 1e3, 2),
+                                            "serve_send_ms": round(t.serve_send_s * 1e3, 2)},
+                                 "spans": t.span_dicts()})
                 return
             if parts[:2] == ["v1", "task"] and len(parts) == 6 and parts[3] == "results":
                 self._results(parts[2], int(parts[4]), int(parts[5]), query)
@@ -911,6 +1026,7 @@ def _handler_for(outer: WorkerServer):
             for kv in query.split("&"):
                 if kv.startswith("max_bytes="):
                     max_bytes = int(kv.split("=", 1)[1])
+            t0 = time.perf_counter()
             if max_bytes > 0:
                 datas, complete, ready = t.buffers.get_many(buffer_id, token, max_bytes,
                                                             timeout=50)
@@ -924,10 +1040,13 @@ def _handler_for(outer: WorkerServer):
                 return
             if not ready:
                 self._send(503, {"retry": True, "state": t.state})
+                t.served(time.perf_counter() - t0, 0.0)
                 return
+            t1 = time.perf_counter()
             encoded = [base64.b64encode(d).decode() for d in datas]
             self._send(200, {"page": encoded[0] if encoded else None, "pages": encoded,
                              "complete": complete})
+            t.served(t1 - t0, time.perf_counter() - t1)
 
         def do_DELETE(self):
             parts = [p for p in self.path.split("/") if p]

@@ -22,9 +22,12 @@ store lacks runs once observed and records its row counts
 fragmented (plan/fragment.py) and runs over the mesh's workers
 (exec/dist.py), the single-process counterpart of the reference's
 DistributedQueryRunner; EXPLAIN (TYPE DISTRIBUTED) prints the fragmented
-plan and EXPLAIN ANALYZE adds an `-- exchange:` footer. Not ported,
-raising NotPortedError: the matmul group-by property; the JAX package's
-observability spans have no counterpart here.
+plan and EXPLAIN ANALYZE adds an `-- exchange:` footer. With tracing on
+(PRESTO_TPU_TRACE, obs/) a SELECT runs under plan and execute spans, its
+QueryResult carries the trace id and phase ms, and EXPLAIN ANALYZE adds
+the `-- trace:` critical path and the `-- kernels:` footer of the kernel
+profile. Not ported, raising NotPortedError: the matmul group-by
+property.
 """
 
 from __future__ import annotations
@@ -49,8 +52,8 @@ class QueryResult:
     def __init__(self, page, titles):
         self.page = page
         self.titles = list(titles)
-        # set by the JAX package's traced dispatch; None here, as there
-        # with tracing off
+        # set by the traced dispatch (_run_select_traced); None with
+        # tracing off
         self.trace_id: Optional[str] = None
         self.phase_ms: Optional[dict] = None
 
@@ -303,6 +306,21 @@ class Session:
         from .matview.manager import MatViewManager
 
         self.matviews_mgr = MatViewManager(self)
+        self._attach_matviews()
+
+    def _attach_matviews(self) -> None:
+        """Point the routing SystemCatalog, if any (connectors/system.py),
+        at this session's view registry, so system.runtime.
+        materialized_views serves live rows. Walks the .wrapped chain; only
+        a catalog that declares the slot (SystemCatalog sets it to None in
+        __init__) gets it: __getattr__ delegators must not be tricked by
+        hasattr."""
+        probe = self.catalog
+        while probe is not None:
+            if "matview_manager" in getattr(probe, "__dict__", {}):
+                probe.matview_manager = self.matviews_mgr
+                return
+            probe = getattr(probe, "wrapped", None)
 
     def _new_executor(self, collector=None):
         """The engine the session runs: the distributed executor over the
@@ -374,6 +392,9 @@ class Session:
             derived.prepared = self.prepared
             derived.schemas = self.schemas
             derived.matviews_mgr = self.matviews_mgr
+            # derived's __init__ attached its own (now orphaned) manager to
+            # a shared SystemCatalog: attach the session-wide one again
+            self._attach_matviews()
             cache[key] = derived
         return derived
 
@@ -477,7 +498,9 @@ class Session:
 
     def _dispatch_query(self, sql, ast):
         if not isinstance(ast, t.Explain):
-            return self._execute_plan_cached(self.plan(sql))
+            # a plain SELECT: the result-cache path, under plan and
+            # execute spans when the observability plane is on
+            return self._run_select_traced(sql)
         node = self.plan(sql)
         etype = getattr(ast, "etype", "logical")
         if ast.analyze:
@@ -511,6 +534,46 @@ class Session:
                 node = fragment_plan(node, self.catalog, self.broadcast_threshold,
                                      num_workers=2)
         return self._plan_lines(N.plan_tree_str(node))
+
+    def _run_select_traced(self, sql: str) -> QueryResult:
+        """Plan and execute under phase spans. The trace lands in the
+        process's TraceStore (system.runtime.tasks), the phase timings on
+        the QueryResult (and from there on the query_completed event), the
+        completion counters in the metrics registry. The execute span
+        carries no row count (the JAX package's reads it: on the card that
+        is a host read of the device count), and the kernel profile reads
+        only the event pairs that have completed, so tracing adds no host
+        synchronisation."""
+        from .obs import span as obs_span
+
+        if not obs_span.enabled():
+            return self._execute_plan_cached(self.plan(sql))
+        from .obs.export import export_query
+        from .obs.kernelprof import KERNEL_PROFILE
+
+        trace = obs_span.TRACES.new_trace()
+        root = trace.begin("query", sql=sql[:200])
+        status = "ok"
+        phase_ms: dict = {}
+        try:
+            span = trace.begin("plan", parent=root)
+            node = self.plan(sql)
+            trace.finish(span)
+            phase_ms["plan"] = round(span.wall_s * 1e3, 3)
+            span = trace.begin("execute", parent=root)
+            res = self._execute_plan_cached(node)
+            trace.finish(span)
+            phase_ms["execute"] = round(span.wall_s * 1e3, 3)
+            res.trace_id = trace.trace_id
+            res.phase_ms = phase_ms
+            return res
+        except Exception:
+            status = "error"
+            raise
+        finally:
+            trace.finish(root, status)
+            export_query(status, root.wall_s, phase_ms)
+            KERNEL_PROFILE.drain()
 
     def _execute_plan_cached(self, node) -> QueryResult:
         """Execute a planned query through the result cache: a hit serves
@@ -1280,13 +1343,39 @@ class Session:
         read from the device once, after the run."""
         from .exec import qcache
         from .exec.stats import StatsCollector
+        from .obs import span as obs_span
+        from .obs.kernelprof import KERNEL_PROFILE, kernels_line
 
         collector = StatsCollector()
         ex = self._new_executor(collector)
+        traced = obs_span.enabled()
+        kprof_before = KERNEL_PROFILE.snapshot()
+        trace = root = exec_span = None
+        if traced:
+            trace = obs_span.TRACES.new_trace()
+            root = trace.begin("query")
+            exec_span = trace.begin("execute", parent=root)
         t0 = time.perf_counter()
         ex.run(node)
         run_s = time.perf_counter() - t0
+        # one host read of every parked row count; the kernels launched
+        # before it have finished, so their event pairs read below
         collector.resolve()
+        if traced:
+            trace.finish(exec_span)
+            trace.finish(root)
+
+            # per-node stats as synthetic spans, so the `-- trace:` footer
+            # ranks the units the cluster path ships
+            def graft(n):
+                s = collector.lookup(n)
+                if s is not None:
+                    trace.add_synthetic(type(n).__name__, exec_span, s.wall_s,
+                                        rows=s.rows_out, bytes=s.out_bytes_total)
+                for c in n.children:
+                    graft(c)
+
+            graft(node)
         tree = N.plan_tree_str(node, collector=collector)
         # the streaming executor records each operator once per batch and
         # each sink inclusive of its input: the run's own wall is the total
@@ -1325,7 +1414,19 @@ class Session:
         matview_txt = ""
         if self.matviews_mgr.views:
             matview_txt = "\n-- matview: " + self.matviews_mgr.format_summary()
-        return (f"{tree}{dyn_txt}{mem_txt}{exch_txt}{cache_txt}{feedback_txt}{matview_txt}\n"
+        # the critical path from the span renderer the cluster path uses,
+        # and what this run added to the kernel profile: library builds
+        # and each hand kernel's launches with their device ms
+        trace_txt = kernel_txt = ""
+        if traced:
+            from .server import knobs
+
+            trace_txt = "\n-- trace: " + obs_span.render_critical_path(trace, knobs.trace_topk())
+            line = kernels_line(kprof_before, KERNEL_PROFILE.snapshot())
+            if line:
+                kernel_txt = "\n-- kernels: " + line
+        return (f"{tree}{dyn_txt}{mem_txt}{exch_txt}{cache_txt}{feedback_txt}{matview_txt}"
+                f"{trace_txt}{kernel_txt}\n"
                 f"-- total {total_ms:,.1f}ms, peak live output {peak:,.2f}MB")
 
     def explain_analyze(self, sql: str) -> str:

@@ -21,7 +21,12 @@ Q5, Q16 and Q18 over an 8-worker mesh on the card, broadcast and
 repartitioned, against the single-device CPU session; lineitem's page
 through the wire onto the card and back (two device-to-host copies, one
 host-to-device), and Q1, Q3, Q5 and Q18 through a two-worker HTTP cluster
-on the card, broadcast and repartitioned, against the CPU session.
+on the card, broadcast and repartitioned, against the CPU session; Q1, Q5
+and Q18 through a CoordinatorServer over the card session against the CPU
+session, the 9-key self-join of lineitem and its EXISTS form on the card
+against the CPU, and the kernel profile's CUDA-event pairs: every launch
+of Q5 timed and read with no host synchronisation that tracing adds, and
+EXPLAIN ANALYZE's `-- kernels:` footer with device ms.
 
 These tests import neither jax nor presto_tpu, so they also run where only
 PyTorch is installed:
@@ -576,3 +581,74 @@ def test_http_cluster_on_card_equals_cpu(cuda, sessions_sf001, http_cluster_on_c
         assert jk.insert_launches > before[0]
     else:
         assert gk.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 5, 18])
+def test_coordinator_on_card_equals_cpu(cuda, sessions_sf001, q):
+    """A query through POST /v1/statement to a CoordinatorServer over the
+    card session: the CPU session's rows as the JSON carries them, the
+    kernels launched on the card, the trace on the query."""
+    from presto_tpu_torch.server import Client, CoordinatorServer
+
+    card, cpu = sessions_sf001
+    srv = CoordinatorServer(card).start()
+    try:
+        before = jk.insert_launches + gk.launches
+        _cols, rows = Client(srv.uri, timeout=120).execute(QUERIES[q])
+        info = max(srv.manager.list_queries(), key=lambda i: i.created_at)
+    finally:
+        srv.stop()
+    want = chip_smoke.json_rows(cpu.query(QUERIES[q]).rows())
+    assert chip_smoke.row_diff(rows, want) is None, chip_smoke.row_diff(rows, want)
+    assert jk.insert_launches + gk.launches > before
+    assert info.trace_id and set(info.phase_ms) == {"plan", "execute"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(chip_smoke.NINE_KEY_SQL))
+def test_nine_key_join_on_card_equals_cpu(cuda, sessions_sf001, label):
+    card, cpu = sessions_sf001
+    got = card.query(chip_smoke.NINE_KEY_SQL[label]).rows()
+    assert got == cpu.query(chip_smoke.NINE_KEY_SQL[label]).rows() == [(60104,)]
+
+
+@pytest.mark.cuda
+def test_kernel_profile_event_pairs_read_without_sync(cuda, sessions_sf001, monkeypatch):
+    """Q5 on the card: with tracing on every launch of kernels 1-3 is
+    timed by a CUDA-event pair and read after the result reached the
+    host; Q5's host syncs are the same with tracing on and off."""
+    from presto_tpu_torch.obs.kernelprof import KERNEL_PROFILE
+
+    card, _cpu = sessions_sf001
+    card.query(QUERIES[5]).rows()  # warm, with the profile's first events
+    syncs = {}
+    for flag in ("1", "0", "1", "0"):
+        monkeypatch.setenv("PRESTO_TPU_TRACE", flag)
+        before = KERNEL_PROFILE.snapshot()
+        _rows, syncs[flag] = chip_smoke._host_syncs(lambda: card.query(QUERIES[5]).rows())
+        after = KERNEL_PROFILE.snapshot()
+        for k in ("groupby_partials", "join_insert", "join_probe"):
+            b = before["kernels"].get(k, {"launches": 0, "timed": 0, "device_s": 0.0})
+            a = after["kernels"].get(k, b)
+            if flag == "1":
+                assert a["launches"] > b["launches"] and a["timed"] - b["timed"] == (
+                    a["launches"] - b["launches"]), (k, b, a)
+                assert a["device_s"] > b["device_s"]
+            else:
+                assert a == b, (k, b, a)
+        assert after["pending"] == 0
+    assert syncs["1"] == syncs["0"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,kernels", [(1, ("groupby_partials",)),
+                                       (5, ("join_insert", "join_probe"))])
+def test_explain_analyze_kernels_footer_on_card(cuda, sessions_sf001, q, kernels):
+    card, _cpu = sessions_sf001
+    text = card.explain_analyze(QUERIES[q])
+    footer = chip_smoke.kernel_footer(text)
+    for k in kernels:
+        launched, timed, ms = footer[k]
+        assert launched >= 1 and timed == launched and ms > 0, (k, footer)
+    assert "-- trace: trace " in text

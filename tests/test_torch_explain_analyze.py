@@ -81,7 +81,9 @@ def test_explain_analyze_per_operator_rows_equal_reference(sessions, q):
     assert got == node_rows(ref.explain_analyze(QUERIES[q]))
     scan = next(ln for ln in lines if "TableScan lineitem" in ln)
     assert re.search(r"out [\d,]{3,} rows", scan)
-    assert lines[-2].startswith("-- caches: plan ")
+    # the caches footer, then (tracing is on by default) the critical path
+    caches = next(i for i, ln in enumerate(lines) if ln.startswith("-- caches: plan "))
+    assert lines[caches + 1].startswith("-- trace: trace ")
     assert "total" in lines[-1] and "peak live output" in lines[-1]
 
 

@@ -234,13 +234,16 @@ def test_probe_key_kinds_match_reference_and_scan(name):
 
 
 def test_probe_more_keys_than_the_kernel_carries_raises():
+    """The probe kernel carries at most MAX_KEYS keys and raises past
+    them; build_table leaves such a join to the sorted-hash layout."""
     n = jk.MAX_KEYS + 1
     cols = {f"k{i}": (np.arange(50) % (i + 2), "bigint", None, None) for i in range(n)}
     _, tp = _pages(cols)
     tkeys = tuple(col(f"k{i}", T.BIGINT) for i in range(n))
-    jt = jk.build_table(tp, tkeys)
+    assert jk.build_table(tp, tkeys) is None
+    vals = [jk.evaluate(k, tp) for k in tkeys]
     with pytest.raises(NotPortedError, match="at most 8"):
-        jk.table_join_n1(tp, jt, tkeys, (), (), "semi")
+        jk._kernel_keys(jk._prepare_keys(vals, vals))
     # exactly MAX_KEYS is taken
     assert int(jk.table_join_n1(tp, jk.build_table(tp, tkeys[:-1]), tkeys[:-1], (), (),
                                 "semi").count) == 50

@@ -591,11 +591,18 @@ def test_tablesample_bernoulli_and_system(tpch):
 
 def test_result_pages_on_the_session_device(pair):
     """Row counts, SHOW, EXPLAIN and query results are built on the
-    session's device; trace_id and phase_ms are None (no tracing)."""
+    session's device; trace_id and phase_ms are set on a SELECT (traced
+    by default) and None on every other statement."""
     for sql in ("create table w (a bigint)", "show tables", "show session",
                 "explain select * from t", "explain analyze select * from t",
                 "select g from t", "show stats for t"):
         res = pair.port.query(sql)
-        assert res.page.device.type == "cpu" and res.trace_id is None and res.phase_ms is None
+        traced = sql.startswith("select")
+        assert res.page.device.type == "cpu"
+        assert (res.trace_id is not None) == traced
+        if traced:
+            assert set(res.phase_ms) == {"plan", "execute"}
+        else:
+            assert res.phase_ms is None
         assert all(b.data.device.type == "cpu" for b in res.page.blocks)
     assert pair.port.catalog.page("w").device.type == "cpu"
